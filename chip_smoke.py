@@ -5,22 +5,31 @@ against their plain versions.
     python3 chip_smoke.py        # from the repository root; needs one CUDA card
 
 It imports nothing of JAX and nothing of the JAX package ``repro``. It
-builds the port's CUDA kernels from ``src/repro_torch/kernels/cms/csrc``
-with ``nvcc`` (into ``src/repro_torch/kernels/cms/_build``) and runs four
-phases; any failure raises and the script exits nonzero:
+builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
+with ``nvcc`` (one ``nvcc`` per library, started together, into each
+library's ``_build/``) and runs five phases; any failure raises and the
+script exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build;
 2. kernels: each CMS kernel against its plain PyTorch version on the card,
-   byte for byte, over widths, batch sizes, caps and key mixes; then each
-   timed with CUDA events at the main path's shapes beside its plain
-   version and one PyTorch library call of the same function;
+   byte for byte, over widths, batch sizes, caps and key mixes; the flash
+   attention kernel against its plain version over head dims, GQA groups,
+   masks, soft-cap, lengths and dtypes, within ``FLASH_TOL``;
+   then each kernel timed with CUDA events at its path's shapes beside its
+   plain version and one PyTorch library call of the same function;
 3. main path, kernel against plain: ``msr2`` at scale 0.02 through nine
    admission x eviction combos on ``sketch_backend=cms``, once through the
    kernels and once with ``use_kernel=False``, byte-identical;
 4. full size: ``wtlfu-av-sampled_frequency?sketch_backend=cms`` over the
    whole ``msr2`` trace (900,000 accesses) with the launch counts reset
    just before and read just after, held against the same run through the
-   plain versions on the CPU.
+   plain versions on the CPU;
+5. serving: SmolLM-135M at full width (random weights from ``SEED``) behind
+   the size-aware prefix cache (``wtlfu-av?sketch_backend=cms``) serves 32
+   prompts of 2,308-3,588 tokens, with the launch counts reset just before
+   and read just after; every prefill runs the flash kernel in each of the
+   30 layers. The same traffic on a fresh engine through the kernels'
+   plain versions must give the same tokens, cache hits and stats.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -28,20 +37,27 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import REGISTRY, AccessTrace, HitMaskRecorder, SimulationEngine  # noqa: E402
+from repro_torch.kernels.attention import flash  # noqa: E402
+from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.cms import cms  # noqa: E402
 from repro_torch.kernels.cms.ref import row_indexes  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
+from repro_torch.serving import Engine, EngineConfig  # noqa: E402
 from repro_torch.state import export_state  # noqa: E402
 from repro_torch.traces import TRACE_SPECS, make_trace  # noqa: E402
 
@@ -62,12 +78,29 @@ OPS_PER_CELL = 2
 #: full-size table width next_pow2(858) = 1024.
 MAIN_WIDTH = 1024
 MAIN_SHAPES = {"cms_update_estimate": (2, 20), "cms_estimate": (0, 11), "cms_update": (2, 0)}
-REPLACES = {
-    "cms_update_estimate": "src/repro/kernels/cms/cms.py:141",
-    "cms_update": "src/repro/kernels/cms/cms.py:101",
-    "cms_estimate": "src/repro/kernels/cms/cms.py:121",
+FLASH = "flash_attention_fwd"
+CMS_SOURCE = "src/repro_torch/kernels/cms/csrc/cms.cu"
+#: each kernel of the path: (its source, the TPU kernel it replaces)
+KERNELS = {
+    "cms_update_estimate": (CMS_SOURCE, "src/repro/kernels/cms/cms.py:141"),
+    "cms_update": (CMS_SOURCE, "src/repro/kernels/cms/cms.py:101"),
+    "cms_estimate": (CMS_SOURCE, "src/repro/kernels/cms/cms.py:121"),
+    FLASH: ("src/repro_torch/kernels/attention/csrc/flash_fwd.cu",
+            "src/repro/kernels/attention/flash.py:77"),
 }
-SOURCE = "src/repro_torch/kernels/cms/csrc/cms.cu"
+#: float32 outside the tensor cores (the kernel's arithmetic; TF32 would
+#: break the reference's float32 tolerance) and bf16 dense tensor-core rate
+F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+#: |kernel - plain| <= atol + rtol * |plain|. float32: the reference's kernel
+#: tolerance (tests/test_kernels.py). bfloat16: kernel and plain both compute
+#: in float32 and round once, so they differ by at most one bf16 step
+#: (2**-7 relative at most); the reference's 3e-2 would be as large as a
+#: typical output at T ~ 3k and hide a fault in the bf16 path.
+FLASH_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (1e-3, 2 ** -7)}
+#: SmolLM-135M's prefill at the serving phase's longest prompt: q [B,S,Hq,D],
+#: k/v [B,S,Hkv,D], causal
+SMOLLM_PREFILL = (1, 3584, 9, 3, 64)
 CPU_BUDGET_S = 330.0  # phases 3 + 4 before the CPU comparison is cut
 
 
@@ -89,7 +122,9 @@ def phase_device() -> str:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    cms.load_library()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per library, started together
+        for fut in [pool.submit(cms.load_library), pool.submit(flash.load_library)]:
+            fut.result()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.3f} s")
     return card
 
@@ -242,6 +277,121 @@ def phase_device_times(dev, reps: int = 500) -> dict[str, float | None]:
     return out
 
 
+# -- phase 2: flash attention -------------------------------------------------
+def _flash_cases():
+    """Every value of each parameter, crossed with every size and dtype:
+    D/Dv cycle over {64,128}^2, GQA groups over {1,3,8}, masks over
+    window {None,256} x soft-cap {None,50}."""
+    sizes = [(1, 1), (63, 63), (2049, 2049), (3588, 3588), (700, 2500)]
+    dims = [(64, 64), (128, 128), (64, 128), (128, 64)]
+    masks = [(None, None), (256, None), (None, 50.0), (256, 50.0)]
+    i = 0
+    for S, T in sizes:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                for window, softcap in masks:
+                    D, Dv = dims[(i // 4) % 4]
+                    yield {"B": 2 if S < 100 else 1, "S": S, "T": T, "Hkv": 2,
+                           "g": (1, 3, 8)[i % 3], "D": D, "Dv": Dv, "dtype": dtype,
+                           "causal": causal, "window": window, "softcap": softcap}
+                    i += 1
+
+
+def _qkv(gen, dev, B, S, T, Hq, Hkv, D, Dv, dtype):
+    q = torch.randn((B, S, Hq, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, T, Hkv, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, T, Hkv, Dv), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+def phase_flash_vs_plain(dev) -> dict[str, float]:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+    for c in _flash_cases():
+        q, k, v = _qkv(gen, dev, c["B"], c["S"], c["T"], c["g"] * c["Hkv"], c["Hkv"], c["D"],
+                       c["Dv"], c["dtype"])
+        kw = {"causal": c["causal"], "window": c["window"], "softcap": c["softcap"]}
+        scale = c["D"] ** -0.5
+        got = flash.flash_attention_fwd(q, k, v, scale, **kw).float()
+        want = flash.flash_attention_fwd(q, k, v, scale, use_kernel=False, **kw).float()
+        check(got.shape == (c["B"], c["S"], c["g"] * c["Hkv"], c["Dv"]), f"flash shape: {c}")
+        check(bool(torch.isfinite(got).all()), f"flash kernel output not finite: {c}")
+        atol, rtol = FLASH_TOL[c["dtype"]]
+        diff = (got - want).abs()
+        bad = int((diff > atol + rtol * want.abs()).sum())
+        name = str(c["dtype"]).split(".")[1]
+        err[name] = max(err[name], float(diff.max()))
+        check(bad == 0, f"flash kernel disagrees with its plain version in {bad} elements "
+                        f"(max |diff| {float(diff.max()):.3e}): {c}")
+        cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 2: {cases} flash cases against plain, max |kernel - plain| = {err} "
+        f"(tolerance atol + rtol*|plain|: float32 {FLASH_TOL[torch.float32]}, "
+        f"bfloat16 {FLASH_TOL[torch.bfloat16]})")
+    return err
+
+
+def _flash_bound(B, S, T, Hq, Hkv, D, Dv, nbytes) -> tuple[float, str]:
+    """Least time at the causal prefill shape (S == T): the score and
+    output products over the live (query, key) pairs at the float32 rate,
+    against q, k, v read once and o written once over HBM bandwidth."""
+    pairs = S * (S + 1) // 2
+    flops = 2 * B * Hq * pairs * (D + Dv)
+    moved = nbytes * (B * S * Hq * D + B * T * Hkv * (D + Dv) + B * S * Hq * Dv)
+    t_ops, t_bytes = flops / F32_FLOPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_flash_timing(dev, reps: int = 20) -> dict:
+    """The kernel at SmolLM-135M's prefill shape (float32, causal): CUDA
+    events, the profiler's device time, its plain version and
+    ``scaled_dot_product_attention`` (the port never calls it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, Hq, Hkv, D = SMOLLM_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q, k, v = _qkv(gen, dev, B, S, S, Hq, Hkv, D, D, torch.float32)
+    scale = D ** -0.5
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def kernel(i):
+        return flash.flash_attention_fwd(q, k, v, scale, causal=True)
+
+    def plain(i):
+        return flash_attention_ref(q, k, v, scale, True)
+
+    def library(i):
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+
+    p1, k1, k2, p2 = _time(plain, reps), _time(kernel, reps), _time(kernel, reps), _time(plain, reps)
+    lib = _time(library, reps)
+    lib_err = float((library(0).transpose(1, 2) - plain(0)).abs().max())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            kernel(i)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if "flash_fwd_kernel" in ev.key:
+            total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    device_ms = total / count / 1e3 if count else None
+    bound_ms, bound_by = _flash_bound(B, S, S, Hq, Hkv, D, D, 4)
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+           "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": device_ms,
+           "shape": [B, S, Hq, Hkv, D]}
+    log(f"phase 2: {FLASH} at q [{B},{S},{Hq},{D}], k/v [{B},{S},{Hkv},{D}], causal, float32: "
+        f"kernel {out['ms']:.6f} ms ({k1:.6f}, {k2:.6f}), device "
+        f"{'not measured' if device_ms is None else f'{device_ms:.6f} ms'} "
+        f"({count} profiled launches), plain {out['plain_ms']:.6f} ms ({p1:.6f}, {p2:.6f}), "
+        f"library (scaled_dot_product_attention) {lib:.6f} ms, max |library - plain| "
+        f"{lib_err:.3e}, bound {bound_ms:.6f} ms ({bound_by}, {F32_FLOPS_PER_S:.3g} FLOP/s "
+        f"float32, {HBM_BYTES_PER_S:.3g} B/s)")
+    return out
+
+
 # -- phase 3 ----------------------------------------------------------------
 def _sizing(trace, frac=0.01):
     """Capacity and ``expected_entries`` by the benchmarks' rule."""
@@ -368,6 +518,131 @@ def phase_full_size(card: str, t_phase3: float, timings: dict) -> dict[str, int]
     return counts
 
 
+# -- phase 5 ----------------------------------------------------------------
+SERVE_REQUESTS = 32
+SERVE_NEW_TOKENS = 8
+
+
+def _serving_prompts(vocab: int, seed: int) -> list[list[int]]:
+    """As the reference launcher builds its traffic: 6 templates of uniform
+    random tokens (2,304-3,584 long), each request a Zipf(1.2) choice of
+    template plus 4 random suffix tokens."""
+    rng = np.random.default_rng(seed)
+    templates = [[int(t) for t in rng.integers(0, vocab, int(n))]
+                 for n in rng.integers(2304, 3585, 6)]
+    pmf = np.arange(1, 7.0) ** -1.2
+    pmf /= pmf.sum()
+    return [templates[int(rng.choice(6, p=pmf))] + [int(x) for x in rng.integers(0, vocab, 4)]
+            for _ in range(SERVE_REQUESTS)]
+
+
+def _comparable(stats: dict) -> dict:
+    """Engine stats without the admission hook's wall-clock latencies."""
+    out = dict(stats)
+    out["admission"] = {k: v for k, v in stats["admission"].items()
+                        if k not in ("decision_p50_ms", "decision_p99_ms")}
+    return out
+
+
+def phase_serving(card: str, flash_device_ms: float | None) -> dict[str, int]:
+    # float32 as the reference: no TF32 in the port's matrix products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("smollm-135m")
+    model = LM(cfg, dtype=torch.float32, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = _serving_prompts(cfg.vocab_size, SEED)
+    ecfg = EngineConfig(max_seq=4096, block_size=16, cache_capacity_bytes=512 << 20,
+                        cache_policy="wtlfu-av?sketch_backend=cms")
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"phase 5: {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, head dim {cfg.resolved_head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} float32 parameters on the card; "
+        f"{len(prompts)} prompts of {min(map(len, prompts))}-{max(map(len, prompts))} tokens")
+    with torch.inference_mode():  # cuBLAS handles and workspaces, outside the counted run
+        model.prefill(params, {"tokens": torch.zeros((1, 2100), dtype=torch.long, device="cuda")})
+    torch.cuda.synchronize()
+
+    engine = Engine(model, params, ecfg)
+    check(engine.prefix_cache.policy.sketch.table.is_cuda, "the prefix cache's sketch is not on the card")
+    torch.cuda.reset_peak_memory_stats()
+    cms.reset_launch_counts()
+    flash.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**cms.launch_counts(), **flash.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.stats()
+
+    misses = [(p, r) for p, r in zip(prompts, out) if r["cached_tokens"] == 0]
+    ttft = sorted(r["ttft_s"] for r in out)
+    decode_tokens = sum(len(r["tokens"]) - 1 for r in out)
+    log(f"phase 5: served {len(out)} requests on {card} in {wall:.3f} s: "
+        f"{len(out) / wall:.3f} requests/s; {len(misses)} prefills at "
+        f"{sum(len(p) for p, _ in misses) / sum(r['ttft_s'] for _, r in misses):.1f} prompt "
+        f"tokens/s; time to first token p50 {1e3 * ttft[len(ttft) // 2]:.3f} ms, max "
+        f"{1e3 * ttft[-1]:.3f} ms; decode {1e3 * sum(r['decode_s'] for r in out) / decode_tokens:.3f} "
+        f"ms/token; peak memory {peak} B")
+    log(f"phase 5: request hit ratio {stats['request_hit_ratio']}, token hit ratio "
+        f"{stats['token_hit_ratio']}, byte hit ratio {stats['byte_hit_ratio']}, prefill savings "
+        f"{stats['prefill_savings_frac']} ({stats['prefill_tokens_saved']} tokens saved, "
+        f"{stats['prefill_tokens_computed']} computed); launches {counts}")
+    if flash_device_ms is not None:
+        share = counts[FLASH] * flash_device_ms / 1e3 / wall
+        log(f"phase 5: flash kernel share of the wall (launches x device time per launch at "
+            f"the 3,584-token shape, an upper bound per launch): {100 * share:.3f}%")
+    else:
+        log("phase 5: flash kernel share of the wall: not measured (no profiler device time)")
+    check(len(misses) > 0 and counts[FLASH] == cfg.num_layers * len(misses),
+          f"flash launches {counts[FLASH]} != {cfg.num_layers} x {len(misses)} prefills")
+    check(stats["prefill_tokens_saved"] > 0, "the prefix cache saved no prefill")
+    check(sum(counts[k] for k in cms.launch_counts()) > 0, "no CMS kernel was launched")
+    for r in out:
+        check(len(r["tokens"]) == SERVE_NEW_TOKENS and bool(torch.isfinite(r["prompt_logits"]).all()),
+              "a request has the wrong number of tokens or non-finite logits")
+
+    # the same traffic on a fresh engine through the plain versions, on the card
+    t0 = time.perf_counter()
+    plain = Engine(model, params, dataclasses.replace(ecfg, use_kernel=False))
+    out_p = plain.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    check({**cms.launch_counts(), **flash.launch_counts()} == counts,
+          "the use_kernel=False run launched kernels")
+    atol, rtol = FLASH_TOL[torch.float32]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(out, out_p)):
+        diff = (a["prompt_logits"] - b["prompt_logits"]).abs()
+        worst = max(worst, float(diff.max()))
+        bad = int((diff > atol + rtol * b["prompt_logits"].abs()).sum())
+        check(bad == 0, f"request {i}: last prompt token logits differ in {bad} entries "
+                        f"(max {float(diff.max()):.3e})")
+        if a["tokens"] != b["tokens"]:
+            for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])):
+                if x != y:
+                    log(f"phase 5: request {i} token {j}: kernel run {x}, plain run {y}")
+                    break
+        check(a["tokens"] == b["tokens"], f"request {i}: generated tokens differ")
+        check(a["cached_tokens"] == b["cached_tokens"], f"request {i}: cached tokens differ")
+    check(_comparable(stats) == _comparable(plain.stats()), "engine stats differ")
+    log(f"phase 5: plain run ({time.perf_counter() - t0:.3f} s) == kernel run: tokens, cached "
+        f"tokens and stats equal; max |last prompt token logits kernel - plain| = {worst:.3e}")
+    return counts
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -376,20 +651,24 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()
     errors = phase_kernels_vs_plain(dev)
+    flash_errors = phase_flash_vs_plain(dev)
     timings = phase_timings(dev)
     for name, ms in phase_device_times(dev).items():
         timings[name]["device_ms"] = ms
+    timings[FLASH] = phase_flash_timing(dev)
     t_phase3 = time.perf_counter()
     phase_main_path_kernel_vs_plain()
     counts = phase_full_size(card, t_phase3, timings)
+    counts[FLASH] = phase_serving(card, timings[FLASH]["device_ms"])[FLASH]
+    errors[FLASH] = max(flash_errors.values())
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": counts[name], "max_abs_err": errors[name],
         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"],
         "bound_ms": timings[name]["bound_ms"], "bound_by": timings[name]["bound_by"],
         "library_ms": timings[name]["library_ms"], "device_ms": timings[name]["device_ms"],
         "shape": timings[name]["shape"],
-    } for name in ("cms_update_estimate", "cms_update", "cms_estimate")]
+    } for name, (source, replaces) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.3f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

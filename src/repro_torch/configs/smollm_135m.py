@@ -1,0 +1,21 @@
+"""SmolLM-135M [hf:HuggingFaceTB/SmolLM-135M]: llama-architecture small model.
+
+30L, d_model 576, 9 heads (GQA kv=3), d_ff 1536, vocab 49152.
+"""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m",
+    family="dense",
+    num_layers=30,
+    d_model=576,
+    num_heads=9,
+    num_kv_heads=3,
+    d_ff=1536,
+    vocab_size=49152,
+    head_dim=64,
+    rope_theta=10_000.0,
+    ffn_act="swiglu",
+    tie_embeddings=True,
+)

@@ -214,6 +214,39 @@ class SizeAwareWTinyLFU:
     def used_bytes(self) -> int:
         return self.window_bytes + self.main.used
 
+    # -- serving-layer reclaim -----------------------------------------------
+    def discard(self, key: int) -> bool:
+        """Forcibly remove ``key`` from the cache (serving-layer reclaim:
+        the block pool needs the bytes back regardless of policy opinion).
+        Returns True if the key was resident. Counts as an eviction."""
+        if key in self.window:
+            self.window_bytes -= self.window.pop(key)
+            self.stats.evictions += 1
+            return True
+        if key in self.main:
+            self.main.evict(key)
+            self.stats.evictions += 1
+            return True
+        return False
+
+    def reclaim_victims(self, needed: int = 0):
+        """Yield resident keys in the order this policy would give them up
+        (serving-layer shortage reclaim asks the eviction policy instead of
+        discarding in insertion order). Main victims come first — the
+        eviction discipline's own candidate order, ``needed`` bytes worth
+        of context for the size-aware rules — then the window LRU→MRU.
+        Never evicts; pair each taken key with :meth:`discard`."""
+        self.main.begin_decision()  # sampling mains: fresh replayable draws
+        seen = set()
+        for key in self.main.iter_victims(needed):
+            if key not in seen:
+                seen.add(key)
+                yield key
+        for key in list(self.window):
+            if key not in seen:
+                seen.add(key)
+                yield key
+
     # -- hot path ------------------------------------------------------------
     def access(self, key: int, size: int) -> bool:
         st = self.stats

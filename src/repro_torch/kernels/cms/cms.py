@@ -3,9 +3,10 @@
 ``csrc/cms.cu`` holds three hand-written CUDA kernels for ``sm_90a`` that
 replace the Pallas kernels of ``repro/kernels/cms/cms.py`` (the source says
 how each is designed and what bounds it). At first use :func:`load_library`
-compiles them with ``nvcc`` into a shared library with a plain C interface
-under ``_build/`` beside this file (listed in ``.gitignore``) and loads it
-with ``ctypes``. Importing this module needs neither ``nvcc`` nor a card.
+compiles them with ``nvcc`` (:mod:`repro_torch.kernels._nvcc`) into a shared
+library with a plain C interface under ``_build/`` beside this file (listed
+in ``.gitignore``) and loads it with ``ctypes``. Importing this module
+needs neither ``nvcc`` nor a card.
 
 Each wrapper checks its tensors and then
 
@@ -22,15 +23,11 @@ The table is updated in place, where the JAX reference returns a new array.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import tempfile
 
 import torch
 
+from .._nvcc import build_library
 from .ref import ROWS, cms_estimate_ref, cms_update_estimate_ref, cms_update_ref
 
 __all__ = [
@@ -47,54 +44,14 @@ __all__ = [
 #: increments fit one flush block (``CMSSketch.flush_block`` = 512).
 FUSED_MAX_UPDATES = 512
 
-_CSRC = pathlib.Path(__file__).parent / "csrc"
-_BUILD = pathlib.Path(__file__).parent / "_build"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC")
-
 _lib: ctypes.CDLL | None = None
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CMS kernels")
-    return nvcc
-
-
-def _build() -> pathlib.Path:
-    """Compile ``csrc/*.cu`` into ``_build/libcms_<hash>.so`` unless a
-    library of the same sources and flags is already there."""
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in sources:
-        digest.update(src.read_bytes())
-    lib = _BUILD / f"libcms_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    _BUILD.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: concurrent builders race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
 
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernels' shared library."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
+        lib = ctypes.CDLL(str(build_library("cms", pathlib.Path(__file__).parent)))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.cms_update_launch.argtypes = [p, i64, p, i64, i32, p]
         lib.cms_estimate_launch.argtypes = [p, i64, p, i64, p, p]

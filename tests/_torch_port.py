@@ -1,8 +1,10 @@
 """Shared helpers of the port's differential tests (``tests/test_torch_*.py``).
 
 Inputs are made with numpy from a seed and handed to both packages; JAX
-runs on the CPU. Every compared path is integer, so every comparison is
-exact (tolerance 0).
+runs on the CPU. Integer paths (sketch tables, admission verdicts, cache
+contents and stats, block hashes, generated tokens) are compared exactly,
+with tolerance 0. Float paths (attention, the model's logits and KV
+caches) are compared within the tolerance that each test states.
 """
 
 from __future__ import annotations

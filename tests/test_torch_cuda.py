@@ -1,4 +1,5 @@
-"""The port's Hopper kernels on the card, against their plain versions.
+"""The port's Hopper kernels on the card, against their plain versions,
+and the serving path through them.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false (the kernels have no CPU or
@@ -8,12 +9,18 @@ so it runs on a machine with a card and PyTorch alone:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import REGISTRY, HitMaskRecorder, SimulationEngine
+from repro_torch.kernels.attention import flash
 from repro_torch.kernels.cms import cms
+from repro_torch.models import LM
+from repro_torch.serving import Engine, EngineConfig
 from repro_torch.state import export_state
 from repro_torch.traces import make_trace
 
@@ -75,3 +82,69 @@ def test_main_path_kernels_equal_plain_and_cpu(cuda_device, spec):
         np.testing.assert_array_equal(bitmap, runs[0][2])
         for k, v in state.items():
             assert np.array_equal(v, runs[0][3][k]) if isinstance(v, np.ndarray) else v == runs[0][3][k]
+
+
+#: float32: the reference's kernel tolerance (tests/test_kernels.py).
+#: bfloat16: kernel and plain both compute in float32 and round once, so
+#: they differ by at most one bf16 step (2**-7 relative at most).
+FLASH_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (1e-3, 2 ** -7)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,T,g,D,Dv,causal,window,softcap", [
+    (1, 1, 1, 64, 64, True, None, None),
+    (63, 63, 3, 128, 128, True, 256, 50.0),
+    (2049, 2049, 3, 64, 64, True, None, None),
+    (700, 2500, 8, 64, 128, False, 256, None),
+    (300, 300, 1, 128, 64, False, None, 50.0),
+])
+def test_flash_kernel_matches_plain(cuda_device, dtype, S, T, g, D, Dv, causal, window, softcap):
+    """The flash kernel against its plain version on the card, within
+    FLASH_TOL (summation order differs)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + T + g)
+    q = torch.randn((2, S, 2 * g, D), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((2, T, 2, D), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((2, T, 2, Dv), generator=gen, device=cuda_device).to(dtype)
+    kw = {"causal": causal, "window": window, "softcap": softcap}
+    before = flash.flash_attention_fwd.launches
+    got = flash.flash_attention_fwd(q, k, v, D ** -0.5, **kw)
+    want = flash.flash_attention_fwd(q, k, v, D ** -0.5, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert flash.flash_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, S, 2 * g, Dv)
+    atol, rtol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="head dims"):
+        flash.flash_attention_fwd(q, q, q, 0.1)
+    q = torch.zeros((1, 8, 2, 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash.flash_attention_fwd(q, q, q, 0.1)
+
+
+def test_tiny_engine_on_the_card(cuda_device):
+    """A 2-layer SmolLM-135M (head dim 64) serves prompts past the flash
+    threshold on the card: every prefill launches the flash kernel once a
+    layer, the cache saves prefill, and the plain run agrees."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("smollm-135m").scaled_down(num_layers=2, head_dim=64)
+    model = LM(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    shared = [int(x) for x in rng.integers(0, cfg.vocab_size, 2100)]
+    prompts = [shared + [int(x) for x in rng.integers(0, cfg.vocab_size, 4)] for _ in range(3)]
+    ecfg = EngineConfig(max_seq=2200, block_size=16, cache_capacity_bytes=64 << 20,
+                        cache_policy="wtlfu-av?sketch_backend=cms")
+    flash.reset_launch_counts()
+    out = Engine(model, params, ecfg).serve(prompts, max_new_tokens=4)
+    prefills = sum(r["cached_tokens"] == 0 for r in out)
+    assert flash.flash_attention_fwd.launches == cfg.num_layers * prefills > 0
+    assert any(r["cached_tokens"] > 0 for r in out)
+    plain = Engine(model, params, dataclasses.replace(ecfg, use_kernel=False))
+    out_p = plain.serve(prompts, max_new_tokens=4)
+    assert [r["tokens"] for r in out] == [r["tokens"] for r in out_p]
+    for a, b in zip(out, out_p):
+        torch.testing.assert_close(a["prompt_logits"], b["prompt_logits"], atol=2e-5, rtol=2e-4)

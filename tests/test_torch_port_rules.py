@@ -5,8 +5,9 @@
   ``repro.*``; so does ``chip_smoke.py``.
 * No source file of the port, nor ``chip_smoke.py``, has an ``import`` or
   ``from`` of ``jax`` or ``repro``.
-* Without CUDA, building a sketch or a policy without ``device="cpu"``
-  raises, and a kernel wrapper asked for its kernel on a CPU tensor raises.
+* Without CUDA, building a sketch, a policy, a model or a serving engine,
+  or running the serving launcher, without ``device="cpu"`` raises, and a
+  kernel wrapper asked for its kernel on a CPU tensor raises.
 """
 
 import ast
@@ -19,8 +20,13 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import get_config
 from repro_torch.core import REGISTRY, CMSSketch, SizeAwareWTinyLFU
+from repro_torch.kernels.attention import flash
 from repro_torch.kernels.cms import cms
+from repro_torch.launch import serve
+from repro_torch.models import LM
+from repro_torch.serving import Engine, EngineConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = pathlib.Path(repro_torch.__file__).parent
@@ -54,6 +60,8 @@ def _run_guarded(body: str) -> subprocess.CompletedProcess:
 def test_every_port_module_imports_without_jax_or_reference():
     modules = list(_port_modules())
     assert "repro_torch.kernels.cms.cms" in modules and "repro_torch.state" in modules
+    assert {"repro_torch.kernels.attention.flash", "repro_torch.models.transformer",
+            "repro_torch.serving.engine", "repro_torch.launch.serve"} <= set(modules)
     proc = _run_guarded(f"""
         import importlib
         for name in {modules!r}:
@@ -116,14 +124,28 @@ def test_cuda_default_raises_without_a_card():
     with pytest.raises(RuntimeError, match="cuda"):
         REGISTRY.build("wtlfu-av-slru", 10**6)  # whatever the backend
     assert REGISTRY.build("wtlfu-av-slru?sketch_backend=cms&device=cpu", 10**6)
+    cfg = get_config("smollm-135m").scaled_down(num_layers=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LM(cfg)
+    model = LM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Engine(model, params, EngineConfig(device="cuda"))
+    assert Engine(model, params, EngineConfig()).prefix_cache.policy
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "smollm-135m", "--requests", "1"])
+    assert serve.main(["--arch", "smollm-135m", "--requests", "1", "--device", "cpu",
+                       "--max-new-tokens", "1"])
 
 
 def test_wrappers_never_take_the_kernel_path_quietly():
     """use_kernel=True on a CPU tensor raises; it does not fall back."""
     table = torch.zeros((4, 128), dtype=torch.int32)
     keys = torch.arange(5, dtype=torch.int32)
+    q = torch.zeros((1, 4, 2, 64))
     for call in (lambda: cms.cms_update(table, keys, use_kernel=True),
                  lambda: cms.cms_estimate(table, keys, use_kernel=True),
-                 lambda: cms.cms_update_estimate(table, keys, keys, use_kernel=True)):
+                 lambda: cms.cms_update_estimate(table, keys, keys, use_kernel=True),
+                 lambda: flash.flash_attention_fwd(q, q, q, 0.125, use_kernel=True)):
         with pytest.raises(ValueError, match="use_kernel=True"):
             call()
