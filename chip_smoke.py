@@ -7,16 +7,19 @@ against their plain versions.
 It imports nothing of JAX and nothing of the JAX package ``repro``. It
 builds the port's CUDA kernels from ``src/repro_torch/kernels/*/csrc``
 with ``nvcc`` (one ``nvcc`` per library, started together, into each
-library's ``_build/``) and runs five phases; any failure raises and the
+library's ``_build/``) and runs six phases; any failure raises and the
 script exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build;
 2. kernels: each CMS kernel against its plain PyTorch version on the card,
    byte for byte, over widths, batch sizes, caps and key mixes; the flash
    attention kernel against its plain version over head dims, GQA groups,
-   masks, soft-cap, lengths and dtypes, within ``FLASH_TOL``;
+   masks, soft-cap, lengths and dtypes, within ``FLASH_TOL``; the wkv6
+   kernel's output and final state against its plain version over lengths,
+   heads, batch sizes, dtypes and an extreme-decay case, within ``WKV_TOL``;
    then each kernel timed with CUDA events at its path's shapes beside its
-   plain version and one PyTorch library call of the same function;
+   plain version and one PyTorch library call of the same function, where
+   one exists;
 3. main path, kernel against plain: ``msr2`` at scale 0.02 through nine
    admission x eviction combos on ``sketch_backend=cms``, once through the
    kernels and once with ``use_kernel=False``, byte-identical;
@@ -29,7 +32,17 @@ script exits nonzero:
    prompts of 2,308-3,588 tokens, with the launch counts reset just before
    and read just after; every prefill runs the flash kernel in each of the
    30 layers. The same traffic on a fresh engine through the kernels'
-   plain versions must give the same tokens, cache hits and stats.
+   plain versions must give the same tokens, cache hits and stats;
+6. serving RWKV-6: rwkv6-7b at its published width and depth (random
+   weights from ``SEED``) behind the same prefix cache serves 32 requests
+   over 6 block-aligned templates of 2,304-3,584 tokens, each bare or with
+   4 more tokens, so that a stored recurrent state is reused; every prefill
+   runs the wkv6 kernel in each of the 32 layers. The cache's stats must
+   equal a CPU rehearsal of the same traffic (:func:`rehearse_rwkv_serving`),
+   and a fresh engine through the plain versions must give the same tokens,
+   cache hits and stats. Then the kernel is held against its plain version
+   on every layer's own wkv6 inputs of every prefill, and against an exact
+   (float64) wkv6 on one prompt (:func:`rwkv_precision`).
 
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -37,7 +50,10 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import itertools
 import json
 import pathlib
 import subprocess
@@ -56,7 +72,9 @@ from repro_torch.kernels.attention import flash  # noqa: E402
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.cms import cms  # noqa: E402
 from repro_torch.kernels.cms.ref import row_indexes  # noqa: E402
+from repro_torch.kernels.wkv import wkv6 as wkv  # noqa: E402
 from repro_torch.models import LM  # noqa: E402
+from repro_torch.models import rwkv as rwkv_model  # noqa: E402
 from repro_torch.serving import Engine, EngineConfig  # noqa: E402
 from repro_torch.state import export_state  # noqa: E402
 from repro_torch.traces import TRACE_SPECS, make_trace  # noqa: E402
@@ -79,6 +97,7 @@ OPS_PER_CELL = 2
 MAIN_WIDTH = 1024
 MAIN_SHAPES = {"cms_update_estimate": (2, 20), "cms_estimate": (0, 11), "cms_update": (2, 0)}
 FLASH = "flash_attention_fwd"
+WKV = "wkv6_fwd"
 CMS_SOURCE = "src/repro_torch/kernels/cms/csrc/cms.cu"
 #: each kernel of the path: (its source, the TPU kernel it replaces)
 KERNELS = {
@@ -87,6 +106,7 @@ KERNELS = {
     "cms_estimate": (CMS_SOURCE, "src/repro/kernels/cms/cms.py:121"),
     FLASH: ("src/repro_torch/kernels/attention/csrc/flash_fwd.cu",
             "src/repro/kernels/attention/flash.py:77"),
+    WKV: ("src/repro_torch/kernels/wkv/csrc/wkv6.cu", "src/repro/kernels/wkv/wkv6.py:71"),
 }
 #: float32 outside the tensor cores (the kernel's arithmetic; TF32 would
 #: break the reference's float32 tolerance) and bf16 dense tensor-core rate
@@ -101,6 +121,17 @@ FLASH_TOL = {torch.float32: (2e-5, 2e-4), torch.bfloat16: (1e-3, 2 ** -7)}
 #: SmolLM-135M's prefill at the serving phase's longest prompt: q [B,S,Hq,D],
 #: k/v [B,S,Hkv,D], causal
 SMOLLM_PREFILL = (1, 3584, 9, 3, 64)
+#: wkv6 |kernel - plain| <= atol + rtol * |plain|. float32: the reference's
+#: wkv6 tolerance (tests/test_kernels.py::TestWkv6Kernel, against the scan),
+#: atol 3e-4, and 5e-4 where w reaches down to 1e-7; the kernel and its plain
+#: version differ only in the order of float32 sums and in ex2/log2 against
+#: exp/log. bfloat16 output: both compute in float32 from the same bf16
+#: inputs and round once, so they differ by one bf16 step at most. The final
+#: state is float32 in both dtypes and held to the float32 atol.
+WKV_TOL = {torch.float32: (3e-4, 0.0), torch.bfloat16: (1e-3, 2 ** -7)}
+WKV_EXTREME_ATOL = 5e-4
+#: rwkv6-7b's prefill at the serving phase's longest prompt: r/k/v/w [B,T,H,64]
+RWKV_PREFILL = (1, 3584, 64)
 CPU_BUDGET_S = 330.0  # phases 3 + 4 before the CPU comparison is cut
 
 
@@ -122,8 +153,9 @@ def phase_device() -> str:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per library, started together
-        for fut in [pool.submit(cms.load_library), pool.submit(flash.load_library)]:
+    libraries = (cms.load_library, flash.load_library, wkv.load_library)
+    with ThreadPoolExecutor(len(libraries)) as pool:  # one nvcc per library, started together
+        for fut in [pool.submit(load) for load in libraries]:
             fut.result()
     log(f"phase 1: kernels built and loaded in {time.perf_counter() - t0:.3f} s")
     return card
@@ -392,6 +424,127 @@ def phase_flash_timing(dev, reps: int = 20) -> dict:
     return out
 
 
+# -- phase 2: wkv6 ------------------------------------------------------------
+def _wkv_cases():
+    """T over {64, 100, 1,000, 3,584} (one chunk, a ragged chunk, many, the
+    serving prompt) x H over {2, 64} x float32 and bfloat16 (bf16 cases
+    alternate bf16 and float32 w, as the model gives it), B = 2 below 1,000
+    tokens; w uniform in (0.2, 0.999); then two extreme-decay cases with w
+    from 1e-7."""
+    i = 0
+    for T in (64, 100, 1000, 3584):
+        for H in (2, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                w_dtype = torch.float32 if dtype == torch.float32 or i % 2 else torch.bfloat16
+                yield {"B": 2 if T < 1000 else 1, "T": T, "H": H, "dtype": dtype,
+                       "w_dtype": w_dtype, "w_low": 0.2}
+                i += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        yield {"B": 1, "T": 130, "H": 2, "dtype": dtype, "w_dtype": dtype, "w_low": 1e-7}
+
+
+def _wkv_inputs(gen, dev, B, T, H, dtype, w_dtype, w_low):
+    K = wkv.HEAD_SIZE
+    r, k, v = ((torch.randn((B, T, H, K), generator=gen, device=dev) * 0.5).to(dtype)
+               for _ in range(3))
+    hi = 0.999 if w_low > 1e-3 else 1.0
+    w = (torch.rand((B, T, H, K), generator=gen, device=dev) * (hi - w_low) + w_low).to(w_dtype)
+    u = torch.randn((H, K), generator=gen, device=dev) * 0.1
+    return r, k, v, w, u
+
+
+def phase_wkv_vs_plain(dev) -> dict[str, float]:
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    err = {"float32": 0.0, "bfloat16": 0.0, "state": 0.0}
+    cases = 0
+    for c in _wkv_cases():
+        r, k, v, w, u = _wkv_inputs(gen, dev, c["B"], c["T"], c["H"], c["dtype"], c["w_dtype"],
+                                    c["w_low"])
+        o, S = wkv.wkv6_fwd(r, k, v, w, u, return_state=True)
+        o_p, S_p = wkv.wkv6_fwd(r, k, v, w, u, return_state=True, use_kernel=False)
+        o, o_p = o.float(), o_p.float()
+        check(o.shape == (c["B"], c["T"], c["H"], wkv.HEAD_SIZE) and S.shape == S_p.shape,
+              f"wkv6 shapes: {c}")
+        check(bool(torch.isfinite(o).all() and torch.isfinite(S).all()),
+              f"wkv6 kernel output not finite: {c}")
+        atol, rtol = WKV_TOL[c["dtype"]]
+        if c["dtype"] == torch.float32 and c["w_low"] < 1e-3:
+            atol = WKV_EXTREME_ATOL
+        s_atol = WKV_EXTREME_ATOL if c["w_low"] < 1e-3 else WKV_TOL[torch.float32][0]
+        diff, s_diff = (o - o_p).abs(), (S - S_p).abs()
+        bad = int((diff > atol + rtol * o_p.abs()).sum())
+        s_bad = int((s_diff > s_atol).sum())
+        name = str(c["dtype"]).split(".")[1]
+        err[name] = max(err[name], float(diff.max()))
+        err["state"] = max(err["state"], float(s_diff.max()))
+        check(bad == 0 and s_bad == 0,
+              f"wkv6 kernel disagrees with its plain version in {bad} outputs (max "
+              f"{float(diff.max()):.3e}) and {s_bad} state entries (max "
+              f"{float(s_diff.max()):.3e}): {c}")
+        cases += 1
+    torch.cuda.synchronize()
+    log(f"phase 2: {cases} wkv6 cases against plain (output and final state), max "
+        f"|kernel - plain| = {err} (tolerance atol + rtol*|plain|: float32 "
+        f"{WKV_TOL[torch.float32]}, {WKV_EXTREME_ATOL} with w from 1e-7, bfloat16 "
+        f"{WKV_TOL[torch.bfloat16]}; state atol {WKV_TOL[torch.float32][0]})")
+    return err
+
+
+def _wkv_bound(B, T, H, K, nbytes) -> tuple[float, str]:
+    """Least time for wkv6 on these inputs: r, k, v, w read once, o and the
+    final state written once over HBM bandwidth, against the least work of
+    the function, that of the step-by-step recurrence: per token and head,
+    o_t = r_t S (2 K V FLOP) and S = diag(w_t) S + k_t^T v_t (2 K V), so
+    4 B T H K V float32 FLOP over the float32 rate. It needs no
+    exponential (w is given); the pairwise exponentials of a chunked form
+    are a cost of that algorithm, not of the function."""
+    flops = 4 * B * T * H * K * K
+    moved = nbytes * B * T * H * (4 * K + K) + 4 * B * H * K * K  # and the float32 state
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_wkv_timing(dev, reps: int = 20) -> dict:
+    """The kernel at rwkv6-7b's prefill shape (float32): CUDA events, the
+    profiler's device time and its plain version. No single PyTorch call
+    computes wkv6, so there is no library time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, T, H = RWKV_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    r, k, v, w, u = _wkv_inputs(gen, dev, B, T, H, torch.float32, torch.float32, 0.2)
+
+    def kernel(i):
+        return wkv.wkv6_fwd(r, k, v, w, u, return_state=True)
+
+    def plain(i):
+        return wkv.wkv6_fwd(r, k, v, w, u, return_state=True, use_kernel=False)
+
+    p1, k1, k2, p2 = _time(plain, reps), _time(kernel, reps), _time(kernel, reps), _time(plain, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            kernel(i)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if "wkv6_kernel" in ev.key:
+            total += getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    device_ms = total / count / 1e3 if count else None
+    bound_ms, bound_by = _wkv_bound(B, T, H, wkv.HEAD_SIZE, 4)
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by, "device_ms": device_ms,
+           "shape": [B, T, H, wkv.HEAD_SIZE]}
+    log(f"phase 2: {WKV} at r/k/v/w [{B},{T},{H},{wkv.HEAD_SIZE}], float32, with the final "
+        f"state: kernel {out['ms']:.6f} ms ({k1:.6f}, {k2:.6f}), device "
+        f"{'not measured' if device_ms is None else f'{device_ms:.6f} ms'} "
+        f"({count} profiled launches), plain {out['plain_ms']:.6f} ms ({p1:.6f}, {p2:.6f}), "
+        f"library: none (no single PyTorch call computes wkv6), bound {bound_ms:.6f} ms "
+        f"({bound_by}: {F32_FLOPS_PER_S:.3g} FLOP/s float32, {HBM_BYTES_PER_S:.3g} B/s)")
+    return out
+
+
 # -- phase 3 ----------------------------------------------------------------
 def _sizing(trace, frac=0.01):
     """Capacity and ``expected_entries`` by the benchmarks' rule."""
@@ -631,6 +784,318 @@ def phase_serving(card: str, flash_device_ms: float | None) -> dict[str, int]:
     return counts
 
 
+# -- phase 6 ----------------------------------------------------------------
+#: rwkv6-7b's parameters: the reference's ``LM.init`` tree (``jax.eval_shape``
+#: of it); the config's ``param_count()`` estimate is 7,566,524,416
+RWKV_PARAMS = 7_576_756_224
+RWKV_ENGINE = {"max_seq": 4096, "block_size": 16, "cache_capacity_bytes": 384 << 20,
+               "cache_policy": "wtlfu-av?sketch_backend=cms"}
+#: The kernel's precision on the model's own inputs, checked twice after
+#: the plain run. (1) Every layer of every miss's prefill: the kernel's
+#: output and final state against the plain version's on that layer's wkv6
+#: inputs, max |kernel - plain| <= the reference's float32 atol
+#: (``WKV_TOL``), which it states for outputs of unit scale, times
+#: max(1, max |plain|) of the layer (float32 rounding is relative). (2) On
+#: request ``RWKV_PRECISION_REQUEST``'s prompt, every layer's wkv6 computed
+#: exactly (a float64 scan): the kernel's relative RMS distance from it at
+#: most ``RWKV_EXACT_RATIO`` times the plain version's (float32 sums in
+#: another order may double the rounding; a fault far above rounding does
+#: not pass).
+RWKV_PRECISION_REQUEST = 13
+RWKV_EXACT_RATIO = 2.0
+#: The last prompt token's float32 logits, kernel run against plain run: a
+#: check for faults far above rounding (the layer checks above hold the
+#: rounding). This random 32-layer model carries float32-rounding-sized
+#: changes of its first layers' wkv6 outputs to the logits many times
+#: amplified: relative noise of 1e-7 on the plain outputs moved request 13's
+#: logits by 4.6e-3 and the plain version itself lies 2.9e-3 from the exact
+#: run (on an H100, by :func:`rwkv_precision`; PERF.md), so the
+#: logits of two float32 computations in different orders may differ by a
+#: few 1e-3 to 1e-2; a wrong term or decay moves them by the scale of the
+#: logits (about 5).
+RWKV_LOGITS_TOL = 2e-2
+
+
+def _rwkv_prompts(vocab: int, seed: int) -> list[list[int]]:
+    """Block-aligned templates, so that a recurrent state is reusable: 6
+    templates of uniform random tokens, 16 x U{144..224} long (2,304-3,584);
+    each request a Zipf(1.2) choice of template, bare when ``i % 4 == 0``
+    and otherwise followed by 4 random tokens."""
+    rng = np.random.default_rng(seed)
+    templates = [[int(t) for t in rng.integers(0, vocab, 16 * int(n))]
+                 for n in rng.integers(144, 225, 6)]
+    pmf = np.arange(1, 7.0) ** -1.2
+    pmf /= pmf.sum()
+    out = []
+    for i in range(SERVE_REQUESTS):
+        t = templates[int(rng.choice(6, p=pmf))]
+        out.append(t if i % 4 == 0 else t + [int(x) for x in rng.integers(0, vocab, 4)])
+    return out
+
+
+class _NoModel:
+    """Stands in for the model in :func:`rehearse_rwkv_serving`: the engine
+    asks it for logits (zeros) and caches (none), so the engine's lookups
+    and offers run on the real prefix cache at the real config's bytes per
+    token with nothing computed."""
+
+    def __init__(self, cfg):
+        self.cfg, self.device, self.dtype = cfg, torch.device("cpu"), torch.float32
+
+    def prefill(self, params, batch, max_seq=None, *, use_kernel=True):
+        return torch.zeros((1, self.cfg.padded_vocab)), []
+
+    def decode_step(self, params, caches, tokens, pos):
+        return torch.zeros((1, self.cfg.padded_vocab)), caches
+
+
+def rehearse_rwkv_serving() -> dict:
+    """Phase 6's traffic through the engine and prefix cache alone, on the
+    CPU (admission sees only block hashes and sizes): the cache stats that
+    the card's run must give. ``python3 -c "import chip_smoke as c;
+    print(c.rehearse_rwkv_serving())"``."""
+    cfg = get_config("rwkv6-7b")
+    ecfg = EngineConfig(**RWKV_ENGINE, device="cpu")
+    engine = Engine(_NoModel(cfg), None, ecfg)
+    engine.serve(_rwkv_prompts(cfg.vocab_size, SEED), max_new_tokens=SERVE_NEW_TOKENS)
+    return engine.stats()
+
+
+def phase_rwkv_serving(dev, card: str, wkv_device_ms: float | None) -> dict[str, int]:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = rehearse_rwkv_serving()
+    log(f"phase 6: CPU rehearsal of the traffic through the prefix cache alone "
+        f"({time.perf_counter() - t0:.3f} s): request hit ratio {want['request_hit_ratio']}, "
+        f"token hit ratio {want['token_hit_ratio']}, byte hit ratio {want['byte_hit_ratio']}, "
+        f"prefill savings {want['prefill_savings_frac']}")
+    cfg = get_config("rwkv6-7b")
+    model = LM(cfg, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = _rwkv_prompts(cfg.vocab_size, SEED)
+    ecfg = EngineConfig(**RWKV_ENGINE)
+    log(f"phase 6: {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads x {cfg.rwkv_head_dim}, channel-mix d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} float32 parameters drawn on the card "
+        f"in {time.perf_counter() - t0:.3f} s ({torch.cuda.memory_allocated()} B); "
+        f"{len(prompts)} prompts of {min(map(len, prompts))}-{max(map(len, prompts))} tokens")
+    check(n_params == RWKV_PARAMS, f"{n_params} parameters, not {RWKV_PARAMS}")
+    with torch.inference_mode():  # cuBLAS handles and workspaces, outside the counted run
+        model.prefill(params, {"tokens": torch.zeros((1, 256), dtype=torch.long, device=dev)})
+    torch.cuda.synchronize()
+
+    engine = Engine(model, params, ecfg)
+    check(engine.prefix_cache.policy.sketch.table.is_cuda, "the prefix cache's sketch is not on the card")
+    torch.cuda.reset_peak_memory_stats()
+    cms.reset_launch_counts()
+    flash.reset_launch_counts()
+    wkv.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**cms.launch_counts(), **flash.launch_counts(), **wkv.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    stats = engine.stats()
+
+    misses = [(p, r) for p, r in zip(prompts, out) if r["cached_tokens"] == 0]
+    ttft = sorted(r["ttft_s"] for r in out)
+    decode_tokens = sum(len(r["tokens"]) - 1 for r in out)
+    log(f"phase 6: served {len(out)} requests on {card} in {wall:.3f} s: "
+        f"{len(out) / wall:.3f} requests/s; {len(misses)} prefills at "
+        f"{sum(len(p) for p, _ in misses) / sum(r['ttft_s'] for _, r in misses):.1f} prompt "
+        f"tokens/s; time to first token p50 {1e3 * ttft[len(ttft) // 2]:.3f} ms, max "
+        f"{1e3 * ttft[-1]:.3f} ms; decode {1e3 * sum(r['decode_s'] for r in out) / decode_tokens:.3f} "
+        f"ms/token; peak memory {peak} B")
+    log(f"phase 6: request hit ratio {stats['request_hit_ratio']}, token hit ratio "
+        f"{stats['token_hit_ratio']}, byte hit ratio {stats['byte_hit_ratio']}, prefill savings "
+        f"{stats['prefill_savings_frac']} ({stats['prefill_tokens_saved']} tokens saved, "
+        f"{stats['prefill_tokens_computed']} computed); launches {counts}")
+    if wkv_device_ms is not None:
+        share = counts[WKV] * wkv_device_ms / 1e3 / wall
+        log(f"phase 6: wkv6 kernel share of the wall (launches x device time per launch at "
+            f"the 3,584-token shape, an upper bound per launch): {100 * share:.3f}%")
+    else:
+        log("phase 6: wkv6 kernel share of the wall: not measured (no profiler device time)")
+    check(_comparable(stats) == _comparable(want), "cache stats differ from the CPU rehearsal")
+    check(len(misses) > 0 and counts[WKV] == cfg.num_layers * len(misses),
+          f"wkv6 launches {counts[WKV]} != {cfg.num_layers} x {len(misses)} prefills")
+    check(counts[FLASH] == 0, "an attention-free model launched the flash kernel")
+    check(stats["prefill_tokens_saved"] > 0, "the prefix cache saved no prefill")
+    check(counts["cms_update_estimate"] > 0, "no fused CMS kernel was launched")
+    for r in out:
+        check(len(r["tokens"]) == SERVE_NEW_TOKENS and bool(torch.isfinite(r["prompt_logits"]).all()),
+              "a request has the wrong number of tokens or non-finite logits")
+
+    # the same traffic on a fresh engine through the plain versions, on the card
+    t0 = time.perf_counter()
+    plain = Engine(model, params, dataclasses.replace(ecfg, use_kernel=False))
+    out_p = plain.serve(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    check({**cms.launch_counts(), **flash.launch_counts(), **wkv.launch_counts()} == counts,
+          "the use_kernel=False run launched kernels")
+    t_plain = time.perf_counter() - t0
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(out, out_p)):
+        diff = float((a["prompt_logits"] - b["prompt_logits"]).abs().max())
+        worst = max(worst, diff)
+        check(diff <= RWKV_LOGITS_TOL, f"request {i}: last prompt token logits differ by "
+                                       f"{diff:.3e}, more than {RWKV_LOGITS_TOL}")
+        if a["tokens"] != b["tokens"]:
+            for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])):
+                if x != y:
+                    log(f"phase 6: request {i} token {j}: kernel run {x}, plain run {y}")
+                    break
+        check(a["tokens"] == b["tokens"], f"request {i}: generated tokens differ")
+        check(a["cached_tokens"] == b["cached_tokens"], f"request {i}: cached tokens differ")
+    check(_comparable(stats) == _comparable(plain.stats()), "engine stats differ")
+    scale = max(float(r["prompt_logits"].abs().max()) for r in out_p)
+    log(f"phase 6: plain run ({t_plain:.3f} s) == kernel run: tokens, cached tokens and stats "
+        f"equal; max |last prompt token logits kernel - plain| = {worst:.3e} (tolerance "
+        f"{RWKV_LOGITS_TOL}; max |plain logit| {scale:.3f})")
+
+    # the kernel on every layer's own wkv6 inputs (these launches come after
+    # the counted run)
+    t0 = time.perf_counter()
+    layer_err = max(max(wkv_layers_vs_plain(model, params, p, dev)) for p, _ in misses)
+    log(f"phase 6: wkv6 in every layer of the {len(misses)} prefills, kernel against plain on "
+        f"the layer's inputs ({time.perf_counter() - t0:.3f} s): max |kernel - plain| / "
+        f"max(1, max |plain|) = {layer_err:.3e} (tolerance {WKV_TOL[torch.float32][0]})")
+    check(layer_err <= WKV_TOL[torch.float32][0], "a layer's wkv6 kernel output or state "
+                                                 "disagrees with its plain version")
+    t0 = time.perf_counter()
+    prec = rwkv_precision(model, params, prompts[RWKV_PRECISION_REQUEST], dev)
+    err = prec["layer_rel_rms_err"]
+    ratio = max(a / b for a, b in zip(err["kernel"], err["plain32"]))
+    log(f"phase 6: precision on request {RWKV_PRECISION_REQUEST} ({prec['tokens']} tokens, "
+        f"{time.perf_counter() - t0:.3f} s): {json.dumps(prec)}")
+    log(f"phase 6: wkv6 relative RMS distance from the exact (float64) value, over the "
+        f"{cfg.num_layers} layers: kernel {min(err['kernel']):.3e}-{max(err['kernel']):.3e}, "
+        f"plain chunk 32 {min(err['plain32']):.3e}-{max(err['plain32']):.3e}, chunk 64 "
+        f"{min(err['plain64']):.3e}-{max(err['plain64']):.3e}; kernel / chunk 32 at most "
+        f"{ratio:.3f} (limit {RWKV_EXACT_RATIO})")
+    check(ratio <= RWKV_EXACT_RATIO, "the wkv6 kernel is less accurate than its plain version")
+    return counts
+
+
+@contextlib.contextmanager
+def _wkv_layers(fn):
+    """Routes the rwkv model's wkv6 calls through ``fn(layer, r, k, v, w, u)``
+    (which returns o and the final state) while the block runs; ``layer``
+    counts the calls from 0."""
+    layers = itertools.count()
+    model_wkv6 = rwkv_model.wkv6
+
+    def tap(r, k, v, w, u, *, chunk, return_state, use_kernel):
+        o, S = fn(next(layers), r, k, v, w, u)
+        return (o, S) if return_state else o
+
+    rwkv_model.wkv6 = tap
+    try:
+        yield
+    finally:
+        rwkv_model.wkv6 = model_wkv6
+
+
+def _prefill_logits(model, params, prompt, dev, fn) -> torch.Tensor:
+    """The last prompt token's logits of a prefill whose wkv6 calls go
+    through ``fn`` (see :func:`_wkv_layers`)."""
+    with torch.inference_mode(), _wkv_layers(fn):
+        tokens = torch.tensor([prompt], dtype=torch.long, device=dev)
+        return model.prefill(params, {"tokens": tokens}, use_kernel=False)[0][0]
+
+
+def _wkv_plain(layer, r, k, v, w, u, chunk=rwkv_model.CHUNK):
+    return wkv.wkv6_fwd(r, k, v, w, u, chunk=chunk, return_state=True, use_kernel=False)
+
+
+def _wkv_kernel(layer, r, k, v, w, u):
+    return wkv.wkv6_fwd(r, k, v, w, u, return_state=True)
+
+
+def _wkv6_exact(r, k, v, w, u):
+    """wkv6 by the step-by-step recurrence in float64: the exact value that
+    float32 versions are measured against. Returns float64 o and state."""
+    B, T, H, K = r.shape
+    r, k, v, w = (x.double() for x in (r, k, v, w))
+    uu = u.double()[None, :, :, None]
+    S = r.new_zeros((B, H, K, v.shape[-1]))
+    o = r.new_empty((B, T, H, v.shape[-1]))
+    for t in range(T):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        o[:, t] = torch.einsum("bhk,bhkv->bhv", r[:, t], S + uu * kv)
+        S = w[:, t, :, :, None] * S + kv
+    return o, S
+
+
+def wkv_layers_vs_plain(model, params, prompt, dev) -> list[float]:
+    """Prefills ``prompt`` through the plain versions and runs the kernel on
+    every layer's own wkv6 inputs: per layer, max |kernel - plain| of the
+    output and the final state over max(1, max |plain|) of each (the
+    model's plain version: chunk ``rwkv_model.CHUNK``)."""
+    errs = []
+
+    def fn(layer, r, k, v, w, u):
+        o, S = _wkv_plain(layer, r, k, v, w, u)
+        o_k, S_k = _wkv_kernel(layer, r, k, v, w, u)
+        errs.append(max(float((o_k - o).abs().max()) / max(1.0, float(o.abs().max())),
+                        float((S_k - S).abs().max()) / max(1.0, float(S.abs().max()))))
+        return o, S
+
+    _prefill_logits(model, params, prompt, dev, fn)
+    return errs
+
+
+def rwkv_precision(model, params, prompt, dev) -> dict:
+    """Where the kernel run's logits part from the plain run's, on one
+    prompt. Each layer's wkv6 is computed exactly (float64 scan) and, on the
+    same inputs, by the kernel and by the plain version at chunks 32 and
+    64: their relative distances from the exact value, per layer. Then the
+    last prompt token's logits of whole prefills whose wkv6 is, in every
+    layer, the exact one, the kernel, the plain one at chunk 32 (the
+    model's) or 64, the kernel in layer 0 only, or the plain one with every
+    output multiplied by 1 + eps N(0, 1) for eps 1e-7 and 1e-6."""
+    layer_err = {"kernel": [], "plain32": [], "plain64": []}
+    fns = {"kernel": _wkv_kernel, "plain32": _wkv_plain,
+           "plain64": functools.partial(_wkv_plain, chunk=64)}
+
+    def exact(layer, r, k, v, w, u):
+        o, S = _wkv6_exact(r, k, v, w, u)
+        rms = float(o.square().mean().sqrt())
+        for name, fn in fns.items():
+            o_x = fn(layer, r, k, v, w, u)[0].double()
+            layer_err[name].append(float((o_x - o).square().mean().sqrt()) / rms)
+        return o.float(), S.float()
+
+    def noisy(eps):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+        def fn(layer, r, k, v, w, u):
+            o, S = _wkv_plain(layer, r, k, v, w, u)
+            return o * (1 + eps * torch.randn(o.shape, generator=gen, device=o.device)), S
+        return fn
+
+    def kernel_in_layer0(layer, r, k, v, w, u):
+        return (_wkv_kernel if layer == 0 else _wkv_plain)(layer, r, k, v, w, u)
+
+    logits = {"exact": _prefill_logits(model, params, prompt, dev, exact)}
+    for name, fn in {**fns, "kernel_layer0": kernel_in_layer0, "noise1e-7": noisy(1e-7),
+                     "noise1e-6": noisy(1e-6)}.items():
+        logits[name] = _prefill_logits(model, params, prompt, dev, fn)
+    base = logits["plain32"]
+    return {"tokens": len(prompt),
+            "layer_rel_rms_err": layer_err,
+            "logits_vs_plain32": {n: float((x - base).abs().max()) for n, x in logits.items()
+                                  if n != "plain32"},
+            "logits_vs_exact": {n: float((x - logits["exact"]).abs().max())
+                                for n, x in logits.items() if n != "exact"}}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -656,11 +1121,15 @@ def main() -> int:
     for name, ms in phase_device_times(dev).items():
         timings[name]["device_ms"] = ms
     timings[FLASH] = phase_flash_timing(dev)
+    wkv_errors = phase_wkv_vs_plain(dev)
+    timings[WKV] = phase_wkv_timing(dev)
     t_phase3 = time.perf_counter()
     phase_main_path_kernel_vs_plain()
     counts = phase_full_size(card, t_phase3, timings)
     counts[FLASH] = phase_serving(card, timings[FLASH]["device_ms"])[FLASH]
+    counts[WKV] = phase_rwkv_serving(dev, card, timings[WKV]["device_ms"])[WKV]
     errors[FLASH] = max(flash_errors.values())
+    errors[WKV] = max(wkv_errors.values())
     kernels = [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": counts[name], "max_abs_err": errors[name],

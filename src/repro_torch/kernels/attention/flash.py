@@ -30,6 +30,7 @@ import pathlib
 
 import torch
 
+from .. import kernel_wanted
 from .._nvcc import build_library
 from .ref import flash_attention_ref
 
@@ -75,24 +76,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"devices differ: {q.device}, {k.device}, {v.device}")
 
 
-def _use_kernel(q: torch.Tensor, use_kernel: bool | None) -> bool:
-    if q.is_cuda:
-        if q.device.index != torch.cuda.current_device():
-            raise ValueError(f"q on {q.device}, current device is "
-                             f"cuda:{torch.cuda.current_device()}")
-        return use_kernel is not False
-    if use_kernel:
-        raise ValueError("use_kernel=True needs CUDA tensors; these lie on the CPU")
-    return False
-
-
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, *,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None,
                         use_kernel: bool | None = None) -> torch.Tensor:
     """q ``[B,S,Hq,D]``; k ``[B,T,Hkv,D]``; v ``[B,T,Hkv,Dv]`` -> ``[B,S,Hq,Dv]``."""
     _check(q, k, v)
-    if not _use_kernel(q, use_kernel):
+    if not kernel_wanted(q, use_kernel):
         return flash_attention_ref(q, k, v, scale, causal, window, softcap)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("the flash kernel is forward only; its backward comes with the "

@@ -27,6 +27,7 @@ import pathlib
 
 import torch
 
+from .. import kernel_wanted
 from .._nvcc import build_library
 from .ref import ROWS, cms_estimate_ref, cms_update_estimate_ref, cms_update_ref
 
@@ -79,17 +80,6 @@ def _check(table: torch.Tensor, *keys: torch.Tensor) -> None:
             raise ValueError(f"keys on {k.device}, table on {table.device}")
 
 
-def _use_kernel(table: torch.Tensor, use_kernel: bool | None) -> bool:
-    if table.is_cuda:
-        if table.device.index != torch.cuda.current_device():
-            raise ValueError(f"table on {table.device}, current device is "
-                             f"cuda:{torch.cuda.current_device()}")
-        return use_kernel is not False
-    if use_kernel:
-        raise ValueError("use_kernel=True needs CUDA tensors; these lie on the CPU")
-    return False
-
-
 def _raise_if(code: int, what: str) -> None:
     if code != 0:
         msg = load_library().cms_error_string(code).decode()
@@ -104,7 +94,7 @@ def cms_update(table: torch.Tensor, keys: torch.Tensor, *, cap: int = 15,
                use_kernel: bool | None = None) -> torch.Tensor:
     """Saturating increment of every key's 4 cells, in place. Returns ``table``."""
     _check(table, keys)
-    if not _use_kernel(table, use_kernel):
+    if not kernel_wanted(table, use_kernel):
         table.copy_(cms_update_ref(table, keys, cap=cap))
         return table
     n = keys.numel()
@@ -120,7 +110,7 @@ def cms_estimate(table: torch.Tensor, keys: torch.Tensor, *,
                  use_kernel: bool | None = None) -> torch.Tensor:
     """``[N]`` int32 min-over-rows estimates of ``keys``."""
     _check(table, keys)
-    if not _use_kernel(table, use_kernel):
+    if not kernel_wanted(table, use_kernel):
         return cms_estimate_ref(table, keys)
     n = keys.numel()
     out = torch.empty(n, dtype=torch.int32, device=table.device)
@@ -141,7 +131,7 @@ def cms_update_estimate(table: torch.Tensor, upd_keys: torch.Tensor, est_keys: t
     m, n = upd_keys.numel(), est_keys.numel()
     if m > FUSED_MAX_UPDATES:
         raise ValueError(f"fused update takes at most {FUSED_MAX_UPDATES} keys, got {m}")
-    if not _use_kernel(table, use_kernel):
+    if not kernel_wanted(table, use_kernel):
         new_table, vals = cms_update_estimate_ref(table, upd_keys, est_keys, cap=cap)
         table.copy_(new_table)
         return vals

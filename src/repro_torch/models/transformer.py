@@ -1,5 +1,5 @@
-"""The decoder-only LM for the dense attention kinds, driven entirely by
-:class:`repro_torch.configs.ModelConfig`.
+"""The decoder-only LM for the dense attention kinds and RWKV-6, driven
+entirely by :class:`repro_torch.configs.ModelConfig`.
 
 The port's counterpart of the reference's ``repro/models/transformer.py``,
 serving surface only:
@@ -12,7 +12,8 @@ serving surface only:
 
 The cache layout is the reference's: one dict per segment,
 ``{str(i): {"k", "v": [R, B, max_seq, nkv, hd]}}`` with R the segment's
-layers. ``loss`` waits for the training slice; the encoder-decoder and
+layers, or ``{str(i): {"S", "tm_prev", "cm_prev"}}`` for ``rwkv``.
+``loss`` waits for the training slice; the encoder-decoder and
 vision front ends wait with their kinds (ROADMAP queue 1, item 12).
 """
 
@@ -76,7 +77,8 @@ class LM:
     def prefill(self, params, batch: dict, max_seq: int | None = None, *,
                 use_kernel: bool = True):
         """Run the full prompt, returning (last-token logits [B,V], caches).
-        ``use_kernel=False`` runs the flash path's plain version on the card."""
+        ``use_kernel=False`` runs the plain versions of the flash and wkv6
+        kernels on the card."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -104,13 +106,19 @@ class LM:
 
 def _prefill_segment(seg_p, cfg, seg, plan, x, positions, max_seq, *, dtype, use_kernel):
     """Full-sequence pass over one segment that also writes each layer's
-    K/V into the segment's decode cache as the layer produces it."""
+    K/V (or recurrent state) into the segment's decode cache as the layer
+    produces it."""
     B, S = x.shape[0], x.shape[1]
     cache = init_segment_cache(cfg, seg, plan, B, max_seq, dtype, x.device)
     for r in range(seg.repeat):
         x, kvs = apply_superblock(layer(seg_p, r), cfg, seg.kinds, x, positions,
                                   collect_kv=True, use_kernel=use_kernel)
-        for key, (k, v) in kvs.items():
+        for key, payload in kvs.items():
+            if seg.kinds[int(key)] == "rwkv":  # the state after the prompt
+                for name, value in payload.items():
+                    cache[key][name][r].copy_(value)
+                continue
+            k, v = payload
             ck, cv = cache[key]["k"][r], cache[key]["v"][r]  # [B, S_cache, nkv, hd]
             W = ck.shape[1]
             if seg.kinds[int(key)] == "dense_local" and S >= W:

@@ -8,16 +8,18 @@ size-aware W-TinyLFU admission decides residency.
 This is the B=1 tensor path of the reference, run on the model's device
 (``"cuda"`` unless the caller built the model on the CPU).
 Prompts past the model's ``FLASH_THRESHOLD`` prefill through the Hopper
-flash-attention kernel; the prefix cache's ``sketch_backend=cms`` policy
-scores through the CMS kernels. ``use_kernel=False`` runs both kernels'
-plain versions instead (on the card), which is how a run is held against
-its plain twin.
+flash-attention kernel, RWKV-6 prefills through the wkv6 kernel; the
+prefix cache's ``sketch_backend=cms`` policy scores through the CMS
+kernels. ``use_kernel=False`` runs the kernels' plain versions instead (on
+the card), which is how a run is held against its plain twin.
 
 KV payloads are stored *sliced to the prefix length* and re-padded on use,
-so cache byte accounting matches tensor reality. A slice is cloned before
-it is stored (a view would keep the whole ``max_seq`` buffer alive), and
-re-padding builds new tensors, so no in-place decode write reaches a
-stored entry.
+so cache byte accounting matches tensor reality; a recurrent state
+(``rwkv``) is stored whole, and only for a block-aligned prompt. The port
+decodes in place, unlike the reference, so every stored leaf is a copy (a
+slice would also keep the whole ``max_seq`` buffer alive), and a payload
+taken for decoding is copied again (re-padded KV, cloned state): no decode
+write reaches a stored entry.
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ from .scheduler import Request, Scheduler, SchedulerConfig
 
 __all__ = ["Engine", "EngineConfig"]
 
+#: cache leaves with a sequence axis (axis 2), by the reference's names:
+#: sliced to the prefix for storage, and (the first four) re-padded for use
+_SEQ_LEAVES = ("k", "v", "c_kv", "k_rope", "xk", "xv")
+_PAD_LEAVES = ("k", "v", "c_kv", "k_rope")
+
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
@@ -48,7 +55,7 @@ class EngineConfig:
     #: where the prefix cache's policy runs unless its spec names a device;
     #: None: the model's device, where its parameters and caches live
     device: str | None = None
-    #: False: the plain versions of the flash and CMS kernels, on the card
+    #: False: the plain versions of the flash, wkv6 and CMS kernels, on the card
     use_kernel: bool = True
 
 
@@ -92,28 +99,40 @@ class Engine:
     # -- cache payload helpers ------------------------------------------------
     @staticmethod
     def _slice_caches(caches, n_tokens: int):
-        """The first n_tokens of each dense cache, cloned (for storage)."""
-        return [{key: {name: leaf[:, :, :n_tokens].clone() for name, leaf in c.items()}
+        """Copies for storage: the first n_tokens of each sequence leaf (the
+        reference's names, ndim >= 4), every other leaf whole."""
+        def f(name, leaf):
+            if name in _SEQ_LEAVES and leaf.dim() >= 4:
+                return leaf[:, :, :n_tokens].clone()
+            return leaf.clone()
+
+        return [{key: {name: f(name, leaf) for name, leaf in c.items()}
                  for key, c in seg.items()} for seg in caches]
 
     def _pad_caches(self, caches, n_tokens: int):
-        """New caches of max_seq tokens holding the stored prefix (for
-        decoding). As in the reference, a windowed layer's stored prefix
-        (never longer than its window) is padded to max_seq too."""
-        def pad(leaf):
-            new = leaf.new_zeros((*leaf.shape[:2], self.cfg.max_seq, *leaf.shape[3:]))
-            new[:, :, :n_tokens] = leaf
-            return new
+        """New caches for decoding from a stored payload: KV leaves of
+        n_tokens re-padded to max_seq, as in the reference (which pads a
+        windowed layer's stored prefix to max_seq too), every other leaf
+        cloned, so decoding in place leaves the stored entry as it was."""
+        def f(name, leaf):
+            if name in _PAD_LEAVES and leaf.dim() >= 4 and leaf.shape[2] == n_tokens:
+                new = leaf.new_zeros((*leaf.shape[:2], self.cfg.max_seq, *leaf.shape[3:]))
+                new[:, :, :n_tokens] = leaf
+                return new
+            return leaf.clone()
 
-        return [{key: {name: pad(leaf) for name, leaf in c.items()} for key, c in seg.items()}
-                for seg in caches]
+        return [{key: {name: f(name, leaf) for name, leaf in c.items()}
+                 for key, c in seg.items()} for seg in caches]
 
     # -- generation -------------------------------------------------------------
-    def _payload_usable(self, prompt_len: int) -> bool:
-        """Windowed attention payloads must fit inside the window (ring not
-        yet rolled)."""
+    def _payload_usable(self, prompt_len: int, full_blocks: int) -> bool:
+        """Recurrent state is not position-sliceable: only block-aligned
+        prompts store usable payloads for recurrent archs; windowed
+        attention payloads must fit inside the window (ring not yet rolled)."""
         cfg = self.model.cfg
         kinds = {k for seg in cfg.layer_plan() for k in seg.kinds}
+        if kinds & {"rwkv", "rglru"} and full_blocks != prompt_len:
+            return False
         if "dense_local" in kinds and prompt_len > cfg.local_window:
             return False
         return True
@@ -149,7 +168,7 @@ class Engine:
         # offer the *prompt* back to the cache (payload sliced to prompt)
         full_blocks = (len(prompt) // cfg.block_size) * cfg.block_size
         if full_blocks > 0:
-            if self._payload_usable(len(prompt)):
+            if self._payload_usable(len(prompt), full_blocks):
                 payload = self._slice_caches(caches, full_blocks)
             else:
                 payload = None  # entry still participates in admission

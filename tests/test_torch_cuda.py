@@ -1,5 +1,5 @@
 """The port's Hopper kernels on the card, against their plain versions,
-and the serving path through them.
+and the serving paths through them.
 
 Every test here is marked ``cuda`` and skips where
 ``torch.cuda.is_available()`` is false (the kernels have no CPU or
@@ -19,6 +19,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import REGISTRY, HitMaskRecorder, SimulationEngine
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.cms import cms
+from repro_torch.kernels.wkv import wkv6 as wkv
 from repro_torch.models import LM
 from repro_torch.serving import Engine, EngineConfig
 from repro_torch.state import export_state
@@ -148,3 +149,78 @@ def test_tiny_engine_on_the_card(cuda_device):
     assert [r["tokens"] for r in out] == [r["tokens"] for r in out_p]
     for a, b in zip(out, out_p):
         torch.testing.assert_close(a["prompt_logits"], b["prompt_logits"], atol=2e-5, rtol=2e-4)
+
+
+#: |kernel - plain| <= atol + rtol * |plain|. float32: the reference's
+#: wkv6 tolerance (tests/test_kernels.py::TestWkv6Kernel), atol 3e-4, and
+#: 5e-4 for extreme decays. bfloat16 output: both compute in float32 from the
+#: same bf16 inputs and round once, so they differ by one bf16 step at most.
+WKV_TOL = {torch.float32: (3e-4, 0.0), torch.bfloat16: (1e-3, 2 ** -7)}
+
+
+def _wkv_inputs(gen, dev, B, T, H, dtype, w_low=0.2):
+    K = wkv.HEAD_SIZE
+    r, k, v = ((torch.randn((B, T, H, K), generator=gen, device=dev) * 0.5).to(dtype)
+               for _ in range(3))
+    hi = 0.999 if w_low > 1e-3 else 1.0
+    w = (torch.rand((B, T, H, K), generator=gen, device=dev) * (hi - w_low) + w_low).to(dtype)
+    u = torch.randn((H, K), generator=gen, device=dev) * 0.1
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,w_low", [(1, 64, 2, 0.2), (2, 100, 2, 0.2), (1, 1000, 64, 0.2),
+                                         (1, 130, 2, 1e-7)])
+def test_wkv6_kernel_matches_plain(cuda_device, dtype, B, T, H, w_low):
+    """The wkv6 kernel's output and final state against its plain version
+    on the card, within WKV_TOL (5e-4 for extreme decays in float32)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(T + H)
+    r, k, v, w, u = _wkv_inputs(gen, cuda_device, B, T, H, dtype, w_low)
+    before = wkv.wkv6_fwd.launches
+    o, S = wkv.wkv6_fwd(r, k, v, w, u, return_state=True)
+    o_p, S_p = wkv.wkv6_fwd(r, k, v, w, u, return_state=True, use_kernel=False)
+    torch.cuda.synchronize()
+    assert wkv.wkv6_fwd.launches == before + 1
+    assert o.dtype == dtype and o.shape == (B, T, H, 64) and S.dtype == torch.float32
+    atol, rtol = WKV_TOL[dtype]
+    if dtype == torch.float32 and w_low < 1e-3:
+        atol = 5e-4
+    torch.testing.assert_close(o.float(), o_p.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(S, S_p, atol=WKV_TOL[torch.float32][0], rtol=0.0)
+
+
+def test_wkv6_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.zeros((1, 8, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="K = V"):
+        wkv.wkv6_fwd(x, x, x, x, torch.zeros((2, 32), device=cuda_device))
+    x = torch.zeros((1, 8, 2, 64), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        wkv.wkv6_fwd(x, x, x, x, torch.zeros((2, 64), device=cuda_device))
+
+
+def test_tiny_rwkv_engine_on_the_card(cuda_device):
+    """A 2-layer rwkv6-7b (head size 64) serves block-aligned prompts on the
+    card: every prefill launches the wkv6 kernel once a layer, a stored
+    state saves prefill, and the plain run agrees."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("rwkv6-7b").scaled_down(num_layers=2, d_model=128, rwkv_head_dim=64)
+    model = LM(cfg, device=cuda_device)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    shared = [int(x) for x in rng.integers(0, cfg.vocab_size, 16 * 20)]
+    prompts = [shared] + [shared + [int(x) for x in rng.integers(0, cfg.vocab_size, 4)]
+                          for _ in range(2)]
+    ecfg = EngineConfig(max_seq=512, block_size=16, cache_capacity_bytes=64 << 20,
+                        cache_policy="wtlfu-av?sketch_backend=cms")
+    wkv.reset_launch_counts()
+    eng = Engine(model, params, ecfg)
+    out = eng.serve(prompts, max_new_tokens=4)
+    prefills = sum(r["cached_tokens"] == 0 for r in out)
+    assert wkv.wkv6_fwd.launches == cfg.num_layers * prefills > 0
+    assert eng.prefill_tokens_saved > 0
+    plain = Engine(model, params, dataclasses.replace(ecfg, use_kernel=False))
+    out_p = plain.serve(prompts, max_new_tokens=4)
+    assert wkv.wkv6_fwd.launches == cfg.num_layers * prefills
+    assert [r["tokens"] for r in out] == [r["tokens"] for r in out_p]
+    for a, b in zip(out, out_p):
+        torch.testing.assert_close(a["prompt_logits"], b["prompt_logits"], atol=1e-4, rtol=1e-4)

@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import REGISTRY, CMSSketch, SizeAwareWTinyLFU
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.cms import cms
+from repro_torch.kernels.wkv import wkv6 as wkv
 from repro_torch.launch import serve
 from repro_torch.models import LM
 from repro_torch.serving import Engine, EngineConfig
@@ -61,7 +62,9 @@ def test_every_port_module_imports_without_jax_or_reference():
     modules = list(_port_modules())
     assert "repro_torch.kernels.cms.cms" in modules and "repro_torch.state" in modules
     assert {"repro_torch.kernels.attention.flash", "repro_torch.models.transformer",
-            "repro_torch.serving.engine", "repro_torch.launch.serve"} <= set(modules)
+            "repro_torch.serving.engine", "repro_torch.launch.serve",
+            "repro_torch.kernels.wkv.wkv6", "repro_torch.kernels.wkv.ops",
+            "repro_torch.kernels.wkv.ref", "repro_torch.models.rwkv"} <= set(modules)
     proc = _run_guarded(f"""
         import importlib
         for name in {modules!r}:
@@ -143,9 +146,11 @@ def test_wrappers_never_take_the_kernel_path_quietly():
     table = torch.zeros((4, 128), dtype=torch.int32)
     keys = torch.arange(5, dtype=torch.int32)
     q = torch.zeros((1, 4, 2, 64))
+    u = torch.zeros((2, 64))
     for call in (lambda: cms.cms_update(table, keys, use_kernel=True),
                  lambda: cms.cms_estimate(table, keys, use_kernel=True),
                  lambda: cms.cms_update_estimate(table, keys, keys, use_kernel=True),
-                 lambda: flash.flash_attention_fwd(q, q, q, 0.125, use_kernel=True)):
+                 lambda: flash.flash_attention_fwd(q, q, q, 0.125, use_kernel=True),
+                 lambda: wkv.wkv6_fwd(q, q, q, q, u, use_kernel=True)):
         with pytest.raises(ValueError, match="use_kernel=True"):
             call()

@@ -10,6 +10,17 @@ engines' admission-latency percentiles are wall-clock times and are left
 out of the comparison of their stats. One float comparison: a cached
 prefix's last prompt token logits (the decode path) against a cold
 prefill's, float32 atol = rtol = 1e-5 (another order of summation).
+
+RWKV-6 (``rwkv6-7b`` scaled down) serves block-aligned traffic, where a
+bare template stores its final recurrent state and a later request decodes
+only its suffix from it. Its tests cover the engine's recurrent rules
+(a state is stored only for a block-aligned prompt, whole, and a hit's
+decode leaves it as it was) and two faults of the reference that the port
+mirrors (ROADMAP §3): a fully cached block-aligned prompt re-applies its
+last token, and a lookup that stops inside a longer entry takes that
+entry's whole-prompt state. A mirrored fault shows as logits that differ
+from a cold prefill's by more than 1e-3 while the port's tokens equal the
+reference's.
 """
 
 import jax
@@ -337,10 +348,10 @@ class TestScheduler:
 # -- engine ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def engine_parts():
-    """2-layer SmolLM-135M and gemma2-27b of the reference, their parameters
-    carried over."""
+    """2-layer SmolLM-135M, gemma2-27b and rwkv6-7b of the reference, their
+    parameters carried over."""
     out = {}
-    for arch in ("smollm-135m", "gemma2-27b"):
+    for arch in ("smollm-135m", "gemma2-27b", "rwkv6-7b"):
         jm = JaxLM(jax_get_config(arch).scaled_down(num_layers=2), dtype=jnp.float32,
                    remat=False)
         jp = jax.jit(jm.init)(jax.random.key(0))
@@ -355,6 +366,23 @@ def _prompts(vocab, seed=1, n=8):
     templates = [[int(x) for x in rng.integers(0, vocab, m)] for m in (24, 16)]
     return [templates[int(rng.integers(0, 2))] + [int(x) for x in rng.integers(0, vocab, 4)]
             for _ in range(n)]
+
+
+def _aligned_prompts(vocab, block, seed=2, n=16):
+    """Phase 6's traffic at small lengths: three templates of whole blocks
+    (2-4 of ``block`` tokens), each request a Zipf(1.2) choice of template;
+    request i is the bare template when ``i % 4 == 0``, else the template
+    plus 4 random tokens."""
+    rng = np.random.default_rng(seed)
+    templates = [[int(x) for x in rng.integers(0, vocab, block * int(m))]
+                 for m in rng.integers(2, 5, 3)]
+    pmf = np.arange(1, 4.0) ** -1.2
+    pmf /= pmf.sum()
+    out = []
+    for i in range(n):
+        t = templates[int(rng.choice(3, p=pmf))]
+        out.append(t if i % 4 == 0 else t + [int(x) for x in rng.integers(0, vocab, 4)])
+    return out
 
 
 def _engine_stats(eng):
@@ -381,6 +409,119 @@ class TestEngine:
         assert [r["cached_tokens"] for r in got] == [r["cached_tokens"] for r in want]
         assert any(r["cached_tokens"] > 0 for r in got)
         assert _engine_stats(eng) == _engine_stats(jax_eng)
+
+    def test_rwkv_serve_equal_to_reference(self, engine_parts):
+        """Block-aligned traffic through 2-layer rwkv6-7b: requests decode
+        their suffix from a stored recurrent state; tokens, cached tokens
+        and stats equal the reference engine's."""
+        jm, jp, pm, pp = engine_parts["rwkv6-7b"]
+        prompts = _aligned_prompts(pm.cfg.vocab_size, self.ECFG["block_size"])
+        spec = "wtlfu-av?sketch_backend=cms"
+        jax_eng = JaxEngine(jm, jp, JaxEngineConfig(cache_policy=spec, **self.ECFG))
+        fast_jax_cms(jax_eng.prefix_cache.policy.sketch)
+        eng = Engine(pm, pp, EngineConfig(cache_policy=spec, **self.ECFG))
+        want = jax_eng.serve(prompts, max_new_tokens=6)
+        got = eng.serve(prompts, max_new_tokens=6)
+        assert [r["tokens"] for r in got] == [r["tokens"] for r in want]
+        assert [r["cached_tokens"] for r in got] == [r["cached_tokens"] for r in want]
+        assert any(r["cached_tokens"] > 0 and len(p) % 8 for r, p in zip(got, prompts))
+        assert _engine_stats(eng) == _engine_stats(jax_eng)
+        assert eng.prefill_tokens_saved > 0
+
+    def test_rwkv_state_needs_a_block_aligned_prompt(self, engine_parts):
+        """A prompt that ends inside a block offers its whole blocks to the
+        cache but stores no state: the state after the whole prompt is not
+        the state after its blocks."""
+        _, _, pm, pp = engine_parts["rwkv6-7b"]
+        eng = Engine(pm, pp, EngineConfig(**self.ECFG))
+        eng.generate([list(range(20))], max_new_tokens=2)
+        (entry,) = eng.prefix_cache.entries.values()
+        assert entry.n_blocks == 2 and entry.payload is None
+
+    def test_rwkv_state_is_stored_whole(self, engine_parts):
+        """A block-aligned prompt stores each layer's state after the prompt
+        whole (no leaf cut on axis 2), as copies: equal to a cold prefill's
+        caches although the request decoded two more tokens after it."""
+        _, _, pm, pp = engine_parts["rwkv6-7b"]
+        eng = Engine(pm, pp, EngineConfig(**self.ECFG))
+        prompt = list(range(16))
+        eng.generate([prompt], max_new_tokens=3)
+        (entry,) = eng.prefix_cache.entries.values()
+        with torch.inference_mode():
+            _, caches = pm.prefill(pp, {"tokens": torch.tensor([prompt])}, max_seq=64)
+        for seg_got, seg_want in zip(entry.payload, caches):
+            for key in seg_want:
+                assert seg_got[key].keys() == seg_want[key].keys() == {"S", "tm_prev", "cm_prev"}
+                for name, want in seg_want[key].items():
+                    assert seg_got[key][name].shape == want.shape, name
+                    torch.testing.assert_close(seg_got[key][name], want, atol=0, rtol=0)
+
+    def test_rwkv_hit_decode_leaves_the_stored_state_unchanged(self, engine_parts):
+        """The port decodes in place: a hit decodes from a copy of the
+        stored state, which stays as it was."""
+        _, _, pm, pp = engine_parts["rwkv6-7b"]
+        eng = Engine(pm, pp, EngineConfig(**self.ECFG))
+        prompt = list(range(16))
+        eng.generate([prompt], max_new_tokens=2)
+        (entry,) = eng.prefix_cache.entries.values()
+        before = [{k: {n: t.clone() for n, t in c.items()} for k, c in seg.items()}
+                  for seg in entry.payload]
+        (out,) = eng.generate([prompt + [5, 6, 7, 8]], max_new_tokens=4)
+        assert out["cached_tokens"] == 16
+        for seg_now, seg_before in zip(entry.payload, before):
+            for key in seg_before:
+                for name, t in seg_before[key].items():
+                    assert torch.equal(seg_now[key][name], t), (key, name)
+
+    def _mirrored_fault(self, engine_parts, first, second):
+        """Serve ``first`` then ``second`` on the port's and the reference's
+        engines, and ``second`` on a cold port engine; returns (the port's
+        second result, the cold result)."""
+        jm, jp, pm, pp = engine_parts["rwkv6-7b"]
+        jax_eng = JaxEngine(jm, jp, JaxEngineConfig(**self.ECFG))
+        eng, cold = Engine(pm, pp, EngineConfig(**self.ECFG)), Engine(pm, pp, EngineConfig(**self.ECFG))
+        want = jax_eng.generate([first, second], max_new_tokens=4)
+        got = eng.generate([first, second], max_new_tokens=4)
+        assert [r["tokens"] for r in got] == [r["tokens"] for r in want]
+        assert [r["cached_tokens"] for r in got] == [r["cached_tokens"] for r in want]
+        (ref,) = cold.generate([second], max_new_tokens=4)
+        return got[1], ref
+
+    def test_rwkv_mirrors_reference_fault_fully_cached_prompt_reapplies_last_token(self, engine_parts):
+        """ROADMAP §3 (a): a fully cached block-aligned prompt is looked up
+        at len - 1 tokens and its last token decoded again from a state that
+        already holds it, so the logits differ from a cold prefill's. The
+        port mirrors the reference."""
+        prompt = [int(x) for x in np.random.default_rng(3).integers(0, 512, 16)]
+        hit, cold = self._mirrored_fault(engine_parts, prompt, prompt)
+        assert hit["cached_tokens"] == 15
+        assert float((hit["prompt_logits"] - cold["prompt_logits"]).abs().max()) > 1e-3
+
+    def test_rwkv_mirrors_reference_fault_walk_stops_inside_a_longer_entry(self, engine_parts):
+        """ROADMAP §3 (b): a prompt that shares only the first two blocks of
+        a stored 4-block entry is looked up at those blocks and handed that
+        entry's state after all 4, so the logits differ from a cold
+        prefill's. The port mirrors the reference."""
+        rng = np.random.default_rng(4)
+        stored = [int(x) for x in rng.integers(0, 512, 32)]
+        shorter = stored[:16] + [int(x) for x in rng.integers(0, 512, 5)]
+        hit, cold = self._mirrored_fault(engine_parts, stored, shorter)
+        assert hit["cached_tokens"] == 16
+        assert float((hit["prompt_logits"] - cold["prompt_logits"]).abs().max()) > 1e-3
+
+    def test_dense_fully_cached_prompt_diverges_from_reference(self, engine_parts):
+        """ROADMAP §3 (a) for attention kinds: a fully cached block-aligned
+        prompt's stored KV holds all its tokens but is looked up at one
+        fewer, so it is not re-padded to max_seq, and decoding writes past
+        its end: the reference's write is clamped into the last slot, the
+        port's raises."""
+        jm, jp, pm, pp = engine_parts["smollm-135m"]
+        prompt = list(range(16))
+        want = JaxEngine(jm, jp, JaxEngineConfig(**self.ECFG)).generate([prompt, prompt],
+                                                                         max_new_tokens=4)
+        assert want[1]["cached_tokens"] == 15
+        with pytest.raises(IndexError):
+            Engine(pm, pp, EngineConfig(**self.ECFG)).generate([prompt, prompt], max_new_tokens=4)
 
     def test_cached_equals_uncached(self, engine_parts):
         _, _, pm, pp = engine_parts["smollm-135m"]
@@ -421,3 +562,15 @@ class TestEngine:
                           "--max-new-tokens", "2"])
         assert eng.stats()["requests"] == 6
         assert "served 6 requests" in capsys.readouterr().out
+
+    def test_launcher_runs_rwkv_on_cpu(self, capsys):
+        """Its prompts end inside a block, so no state is ever stored, as in
+        the reference launcher."""
+        from repro_torch.launch import serve
+
+        eng = serve.main(["--arch", "rwkv6-7b", "--device", "cpu", "--requests", "6",
+                          "--max-new-tokens", "2"])
+        assert eng.stats()["requests"] == 6
+        assert "served 6 requests" in capsys.readouterr().out
+        assert eng.prefix_cache.entries
+        assert all(e.payload is None for e in eng.prefix_cache.entries.values())
