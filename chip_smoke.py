@@ -12,7 +12,9 @@ script exits nonzero:
 
 1. device: the card's name and power limit (``nvidia-smi``), the build;
 2. kernels: each CMS kernel against its plain PyTorch version on the card,
-   byte for byte, over widths, batch sizes, caps and key mixes; the flash
+   byte for byte, over widths, batch sizes, caps and key mixes, through its
+   tensor wrapper and through the sketch's one-C-call path
+   (:func:`phase_sketch_vs_plain`); the flash
    attention kernel against its plain version over head dims, GQA groups,
    masks, soft-cap, lengths and dtypes, within ``FLASH_TOL``; the wkv6
    kernel's output and final state against its plain version over lengths,
@@ -44,8 +46,24 @@ script exits nonzero:
    on every layer's own wkv6 inputs of every prefill, and against an exact
    (float64) wkv6 on one prompt (:func:`rwkv_precision`).
 
+Phase 2 also times each CMS kernel as the sketch calls it, a host-clock
+round trip from numpy keys to numpy estimates through ``CMSSketch``, beside
+its library call timed the same way, through pinned buffers and
+stream-ordered copies as the sketch's staging moves its keys.
+
 The line before the last is a JSON object of the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --sketch [--src DIR]
+
+runs only what measures the sketch's calls: phase 1, the CMS timings of
+phase 2 and phase 4 without its CPU comparison, with host timers wrapped
+around ``CMSSketch.estimate_batch`` and ``CMSSketch.flush``
+(:class:`SketchTimer`, whose own cost it measures), and prints their
+numbers as one JSON line. ``--src DIR`` drives the package under ``DIR/src`` (a
+``git archive`` of another commit, such as the parent, unpacked in the
+checkout) with this script, so two commits are measured the same way in
+one chip call.
 """
 
 from __future__ import annotations
@@ -53,6 +71,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import itertools
 import json
 import pathlib
@@ -64,10 +83,21 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+def _package_root() -> pathlib.Path:
+    """The checkout whose ``src/`` the script drives: its own, or the one
+    after ``--src``."""
+    args = sys.argv[1:] if __name__ == "__main__" else []
+    if "--src" in args:
+        return pathlib.Path(args[args.index("--src") + 1]).resolve()
+    return pathlib.Path(__file__).resolve().parent
+
+
+sys.path.insert(0, str(_package_root() / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import REGISTRY, AccessTrace, HitMaskRecorder, SimulationEngine  # noqa: E402
+from repro_torch.core.cms_sketch import CMSSketch  # noqa: E402
 from repro_torch.kernels.attention import flash  # noqa: E402
 from repro_torch.kernels.attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.cms import cms  # noqa: E402
@@ -90,12 +120,18 @@ INT32_OPS_PER_S = 33.5e12
 #: increment or gather (compare, add/min).
 OPS_PER_KEY = 30
 OPS_PER_CELL = 2
-#: The main path's shapes (CPU-counted on msr2 at scale 0.1, 1% capacity,
-#: av-sampled_frequency: fused median M=2 increments, N=20 estimates;
-#: unfused estimate median N=11; staged update M=2 at aging resets), at the
-#: full-size table width next_pow2(858) = 1024.
+#: The main path's shapes, the medians that phase 4's ``SketchTimer`` counts
+#: on full msr2 (1% capacity, av-sampled_frequency; the CPU plain run makes
+#: the same calls): fused calls M=4 pending increments, N=20 estimates;
+#: estimate-only calls N=13; the update launches of staged flushes M=3. At
+#: the full-size table width next_pow2(858) = 1024.
 MAIN_WIDTH = 1024
-MAIN_SHAPES = {"cms_update_estimate": (2, 20), "cms_estimate": (0, 11), "cms_update": (2, 0)}
+#: The main path's sketch, sized as phase 4 sizes it (``expected_entries``
+#: 858, width 1,024). The round trips sample no aging reset, so every call
+#: takes the path its shape picks.
+MAIN_EXPECTED = 858
+ROUND_TRIP_SAMPLE_FACTOR = 10 ** 6
+MAIN_SHAPES = {"cms_update_estimate": (4, 20), "cms_estimate": (0, 13), "cms_update": (3, 0)}
 FLASH = "flash_attention_fwd"
 WKV = "wkv6_fwd"
 CMS_SOURCE = "src/repro_torch/kernels/cms/csrc/cms.cu"
@@ -205,6 +241,46 @@ def phase_kernels_vs_plain(dev) -> dict[str, int]:
     return err
 
 
+def phase_sketch_vs_plain(dev, steps: int = 400) -> int:
+    """The sketch's one-C-call path (pinned staging, the ``*_call`` entries)
+    against the same sketch through the plain versions on the card, byte for
+    byte: random interleavings of increments, batches above ``flush_block``
+    and across aging resets, estimates of 0-60 keys, lazy prefix views and
+    flushes (two in a row among them), at the main path's table and at a
+    small one whose sample fills every few calls. Returns the max |kernel -
+    plain| over estimates and tables."""
+    rng = np.random.default_rng(SEED + 9)
+    err, resets = 0, 0
+    for ee, flush_block in ((MAIN_EXPECTED, 512), (16, 48)):
+        staged = CMSSketch(ee, flush_block=flush_block, device=dev)
+        plain = CMSSketch(ee, flush_block=flush_block, use_kernel=False, device=dev)
+        pool = rng.integers(-2**40, 2**40, 4096)
+        for _ in range(steps):
+            op = int(rng.integers(0, 5))
+            if op == 0:
+                batch = pool[rng.integers(0, 4096, int(rng.choice([1, 4, 600, 1500])))]
+                staged.increment_batch(batch)
+                plain.increment_batch(batch)
+            elif op == 1:
+                staged.flush()
+                staged.flush()
+                plain.flush()
+            else:
+                keys = pool[rng.integers(0, 4096, int(rng.integers(0, 61)))].tolist()
+                a = staged.estimate_batch(iter(keys) if op == 4 else keys)
+                b = plain.estimate_batch(keys)
+                err = max(err, int(np.abs(a.astype(np.int64) - b).max(initial=0)))
+            err = max(err, int((staged.table - plain.table).abs().max()))
+            check((staged._ops, staged.resets, staged._pending)
+                  == (plain._ops, plain.resets, plain._pending), "sketch state differs")
+        resets += staged.resets
+    torch.cuda.synchronize()
+    log(f"phase 2: the sketch's staged C path against the plain versions on the card, "
+        f"{2 * steps} calls, {resets} aging resets: max |kernel - plain| = {err}")
+    check(err == 0 and resets > 0, "the staged sketch disagrees with its plain version")
+    return err
+
+
 def _time(fn, reps: int) -> float:
     """ms per call: CUDA events around ``reps`` back-to-back calls."""
     for i in range(20):
@@ -306,6 +382,91 @@ def phase_device_times(dev, reps: int = 500) -> dict[str, float | None]:
         out[name] = total / count / 1e3 if count else None  # us -> ms
         log(f"phase 2: {name} device time per launch (profiler, {count} launches): "
             f"{'not measured' if out[name] is None else f'{out[name]:.6f} ms'}")
+    return out
+
+
+def _host_ms(fn, reps: int) -> float:
+    """ms per call on the host clock around ``reps`` calls, each of which
+    ends with its result on the host (or, for an update, its stream
+    synchronised)."""
+    for i in range(20):
+        fn(i)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(i)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_round_trips(dev, reps: int = 2000) -> dict[str, dict]:
+    """Each CMS kernel as the main path calls it: a host-clock round trip
+    from numpy keys to numpy estimates through ``CMSSketch`` on the card
+    (for ``cms_update``, ``increment_batch`` + ``flush`` until the stream
+    is synchronised), at ``MAIN_SHAPES``. Beside it, the library call of
+    ``phase_timings`` over the same transport as the sketch's staging: the
+    keys' row indexes (hashed beforehand, a favour to the library) written
+    into a pinned host tensor and copied with ``non_blocking=True`` into a
+    device tensor allocated once, the call, the estimates copied the same
+    way into a pinned host tensor, one stream synchronisation, and the
+    estimates copied out of the pinned buffer as numpy. Kernel, library,
+    library, kernel: each reported as the mean of its pair."""
+    rng = np.random.default_rng(SEED + 8)
+    stream = torch.cuda.current_stream(dev)
+    out = {}
+    for name, (m, n) in MAIN_SHAPES.items():
+        sk = CMSSketch(MAIN_EXPECTED, sample_factor=ROUND_TRIP_SAMPLE_FACTOR, device=dev)
+        check(sk.width == MAIN_WIDTH, f"sketch width {sk.width} != {MAIN_WIDTH}")
+        table = sk.table.clone()
+        upd = rng.integers(0, 2**40, (reps + 20, m))
+        est = rng.integers(0, 2**40, (reps + 20, n))
+        idx = [np.concatenate([row_indexes(torch.from_numpy(k.astype(np.int32)), MAIN_WIDTH).numpy()
+                               for k in (upd[i], est[i])], axis=1) for i in range(reps + 20)]
+        ones = torch.ones((4, m), dtype=torch.int32, device=dev)
+        h_idx = torch.empty((4, m + n), dtype=torch.int64, pin_memory=True)
+        h_out = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        d_idx = torch.empty((4, m + n), dtype=torch.int64, device=dev)
+        h_idx_np, h_out_np = h_idx.numpy(), h_out.numpy()
+
+        def send(i):
+            h_idx_np[...] = idx[i]  # the previous call synchronised: no copy reads it
+            d_idx.copy_(h_idx, non_blocking=True)
+
+        def fetch(vals):
+            h_out.copy_(vals, non_blocking=True)
+            stream.synchronize()
+            return h_out_np.copy()
+
+        if name == "cms_update":
+            def kernel(i):
+                sk.increment_batch(upd[i])
+                sk.flush()
+                stream.synchronize()
+
+            def library(i):
+                send(i)
+                table.scatter_add_(1, d_idx, ones).clamp_(max=15)
+                stream.synchronize()
+        elif name == "cms_estimate":
+            def kernel(i):
+                return sk.estimate_batch(est[i])
+
+            def library(i):
+                send(i)
+                return fetch(table.gather(1, d_idx).amin(0))
+        else:
+            def kernel(i):
+                sk.increment_batch(upd[i])
+                return sk.estimate_batch(est[i])
+
+            def library(i):
+                send(i)
+                table.scatter_add_(1, d_idx[:, :m], ones).clamp_(max=15)
+                return fetch(table.gather(1, d_idx[:, m:]).amin(0))
+        k1, l1, l2, k2 = (_host_ms(fn, reps) for fn in (kernel, library, library, kernel))
+        out[name] = {"round_trip_ms": (k1 + k2) / 2, "library_round_trip_ms": (l1 + l2) / 2}
+        log(f"phase 2: {name} round trip at W={MAIN_WIDTH} M={m} N={n}, numpy keys to numpy "
+            f"estimates on the host clock, pinned copies: sketch {out[name]['round_trip_ms']:.6f} "
+            f"ms ({k1:.6f}, {k2:.6f}), library {out[name]['library_round_trip_ms']:.6f} ms "
+            f"({l1:.6f}, {l2:.6f})")
     return out
 
 
@@ -595,7 +756,122 @@ def phase_main_path_kernel_vs_plain() -> None:
 
 
 # -- phase 4 ----------------------------------------------------------------
-def phase_full_size(card: str, t_phase3: float, timings: dict) -> dict[str, int]:
+class SketchTimer:
+    """Host timers around ``CMSSketch.estimate_batch`` and ``CMSSketch.flush``
+    while the block runs (the class attributes are wrapped, so a policy
+    built inside the block calls the wrappers). Per ``estimate_batch`` it
+    records the estimated keys, the pending increments it found and the
+    sketch's flushed count; a lazy prefix view is materialised before its
+    timer starts (walking the victims is the control plane's work). A
+    ``flush`` inside an ``estimate_batch`` is counted inside it. Which path
+    each call took, and the update launches of a staged call, are worked
+    out afterwards, by the package's ``plan_flush`` where it has one. The
+    wrappers' own cost a call is measured by :meth:`cost_us`."""
+
+    def __init__(self):
+        self.n, self.m, self.ops = [], [], []
+        self.estimate_s = self.flush_s = 0.0
+        self.flushes = 0
+        self.sample_size = self.flush_block = None
+        self._inside = False
+
+    def _wrap(self, estimate_batch, flush):
+        timer = self
+
+        def timed_estimate_batch(sk, keys):
+            if not isinstance(keys, (list, tuple, np.ndarray)):
+                keys = list(keys)
+            timer.n.append(len(keys))
+            timer.m.append(len(sk._pending))
+            timer.ops.append(sk._ops)
+            t0 = time.perf_counter()
+            timer._inside = True
+            try:
+                return estimate_batch(sk, keys)
+            finally:
+                timer._inside = False
+                timer.estimate_s += time.perf_counter() - t0
+
+        def timed_flush(sk):
+            if timer._inside:
+                return flush(sk)
+            t0 = time.perf_counter()
+            try:
+                return flush(sk)
+            finally:
+                timer.flushes += 1
+                timer.flush_s += time.perf_counter() - t0
+        return timed_estimate_batch, timed_flush
+
+    @contextlib.contextmanager
+    def installed(self):
+        estimate_batch, flush = CMSSketch.estimate_batch, CMSSketch.flush
+        CMSSketch.estimate_batch, CMSSketch.flush = self._wrap(estimate_batch, flush)
+        try:
+            yield self
+        finally:
+            CMSSketch.estimate_batch, CMSSketch.flush = estimate_batch, flush
+
+    @staticmethod
+    def cost_us(calls: int = 200_000) -> float:
+        """The wrappers' host cost a call, in us: the timed wrapper around a
+        call that does nothing, less that call alone, at phase 4's median
+        shape (13 keys, 2 pending)."""
+        sk = type("Sketch", (), {"_pending": [1, 2], "_ops": 0})()
+        keys = list(range(13))
+
+        def nothing(sk, keys):
+            return None
+        wrapped = SketchTimer()._wrap(nothing, nothing)[0]
+        per_call = []
+        for fn in (nothing, wrapped, nothing, wrapped):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(sk, keys)
+            per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        return (per_call[1] + per_call[3] - per_call[0] - per_call[2]) / 2
+
+    def summary(self, wall: float, sketch) -> dict:
+        n, m, ops = np.asarray(self.n), np.asarray(self.m), np.asarray(self.ops)
+        size, block = sketch.sample_size, sketch.flush_block
+        calls = len(n) + self.flushes
+        sketch_s = self.estimate_s + self.flush_s
+        # the sketch's rule: fused while the pending keys fit one flush
+        # block with no aging reset due, staged for more, estimate for none
+        path = np.where(m == 0, 0, np.where((m <= block) & (ops + m < size), 1, 2))
+        try:
+            from repro_torch.core.cms_sketch import plan_flush
+            takes = [take for i in np.flatnonzero(path == 2)
+                     for take, _ in plan_flush(int(m[i]), int(ops[i]), size, block)[0]]
+        except ImportError:  # a package from before plan_flush
+            takes = None
+
+        def med(x):
+            return int(np.median(x)) if len(x) else None
+        return {
+            "calls": calls, "estimate_batch_calls": len(n), "flush_calls": self.flushes,
+            "keys_mean": float(n.mean()), "keys_max": int(n.max()),
+            "keys_p50": med(n), "keys_p99": int(np.percentile(n, 99)),
+            "pending_share": float((m > 0).mean()), "pending_mean": float(m[m > 0].mean()),
+            "fused_calls": int((path == 1).sum()), "staged_calls": int((path == 2).sum()),
+            "estimate_calls": int((path == 0).sum()),
+            "fused_median_mn": [med(m[path == 1]), med(n[path == 1])],
+            "estimate_median_n": med(n[path == 0]),
+            "staged_median_mn": [med(m[path == 2]), med(n[path == 2])],
+            "staged_update_launches": None if takes is None else len(takes),
+            "update_median_m": None if takes is None else med(takes),
+            "estimate_batch_s": self.estimate_s, "flush_s": self.flush_s, "sketch_s": sketch_s,
+            "sketch_share": sketch_s / wall, "control_plane_s": wall - sketch_s,
+            "sketch_us_per_call": 1e6 * sketch_s / calls,
+        }
+
+
+def phase_full_size(card: str, t_phase3: float, timings: dict,
+                    timed: bool = False) -> tuple[dict[str, int], dict]:
+    """Full ``msr2`` through the port on the card, then through the plain
+    versions on the CPU, which must agree. ``timed`` (the ``--sketch``
+    mode) wraps the sketch in a :class:`SketchTimer` instead and skips the
+    CPU run, so the full run's wall carries no timer."""
     t0 = time.perf_counter()
     trace = make_trace("msr2", seed=SEED, scale=1.0)
     cap, ee = _sizing(trace)
@@ -604,18 +880,22 @@ def phase_full_size(card: str, t_phase3: float, timings: dict) -> dict[str, int]
         f"{trace.total_object_bytes} B), cap {cap} B (1%), expected_entries {ee}; "
         f"trace made in {time.perf_counter() - t0:.3f} s")
     check(len(trace) == TRACE_SPECS["msr2"].n_accesses == 900_000, "msr2 is not full size")
+    check(ee == MAIN_EXPECTED, f"expected_entries {ee} != MAIN_EXPECTED {MAIN_EXPECTED}")
     spec = "wtlfu-av-sampled_frequency?sketch_backend=cms"
-    policy = REGISTRY.build(spec, cap, expected_entries=ee)
-    check(policy.device.type == "cuda" and policy.sketch.table.is_cuda, "policy is not on the card")
     step = 100_000
     rec = HitMaskRecorder()
     engine = SimulationEngine(instruments=[rec], snapshot_every=step)
-    cms.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = engine.run(policy, trace)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = cms.launch_counts()
+    timer = SketchTimer()
+    with timer.installed() if timed else contextlib.nullcontext():
+        policy = REGISTRY.build(spec, cap, expected_entries=ee)
+        check(policy.device.type == "cuda" and policy.sketch.table.is_cuda,
+              "policy is not on the card")
+        cms.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = engine.run(policy, trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = cms.launch_counts()
     st = policy.stats
     decisions = policy.main.decision
     check(all(v > 0 for v in counts.values()), f"a kernel was not launched: {counts}")
@@ -632,7 +912,35 @@ def phase_full_size(card: str, t_phase3: float, timings: dict) -> dict[str, int]
             f"mean {1e3 * in_kernels / launches:.6f} ms per launch")
     else:
         log("phase 4: kernel time inside the run: not measured (no profiler device time)")
+    sketch = {}
+    if timed:
+        sk = sketch = timer.summary(wall, policy.sketch)
+        sk["timer_us_per_call"] = SketchTimer.cost_us()
+        sk["timer_s"] = sk["timer_us_per_call"] * sk["calls"] / 1e6
+        log(f"phase 4: sketch calls {sk['calls']} ({sk['estimate_batch_calls']} estimate_batch, "
+            f"{sk['flush_calls']} flush outside it): keys per call mean {sk['keys_mean']:.3f}, "
+            f"p50 {sk['keys_p50']}, p99 {sk['keys_p99']}, max {sk['keys_max']}; "
+            f"{100 * sk['pending_share']:.3f}% with pending increments (mean "
+            f"{sk['pending_mean']:.3f}); paths: {sk['fused_calls']} fused (median M, N "
+            f"{sk['fused_median_mn']}), {sk['estimate_calls']} estimate (median N "
+            f"{sk['estimate_median_n']}), {sk['staged_calls']} staged (median M, N "
+            f"{sk['staged_median_mn']}; {sk['staged_update_launches']} update launches, "
+            f"median M {sk['update_median_m']})")
+        log(f"phase 4: host time in the sketch: estimate_batch {sk['estimate_batch_s']:.3f} s, "
+            f"flush {sk['flush_s']:.3f} s, together {sk['sketch_s']:.3f} s = "
+            f"{100 * sk['sketch_share']:.3f}% of the wall, {sk['sketch_us_per_call']:.3f} us a "
+            f"call; control plane (the rest) {sk['control_plane_s']:.3f} s; the timer's own "
+            f"cost {sk['timer_us_per_call']:.3f} us a call (a wrapper around a call that does "
+            f"nothing), about {sk['timer_s']:.3f} s of the wall")
+    sketch.update({"wall_s": wall, "accesses_per_s": st.accesses / wall,
+                   "decisions": decisions, "decisions_per_s": decisions / wall,
+                   "hit_ratio": st.hit_ratio, "byte_hit_ratio": st.byte_hit_ratio,
+                   "resets": policy.sketch.resets, "launches": counts,
+                   "stats": {k: v for k, v in st.as_dict().items() if k != "wall_seconds"},
+                   "hits_sha256": hashlib.sha256(np.asarray(rec.hits).tobytes()).hexdigest()})
     check(st.accesses == len(trace) and 0 < st.hits < st.accesses, "implausible stats")
+    if timed:
+        return counts, sketch
 
     # the same run through the plain versions on the CPU, cut to whole
     # 100k-access segments once the time budget of phases 3 + 4 is spent
@@ -668,7 +976,7 @@ def phase_full_size(card: str, t_phase3: float, timings: dict) -> dict[str, int]
             f"(time budget {CPU_BUDGET_S:.0f} s for phases 3 + 4)")
         log(f"phase 4: CPU plain run == card run over the first {done} accesses "
             f"({cpu_wall:.3f} s, {done / cpu_wall:.1f} accesses/s)")
-    return counts
+    return counts, sketch
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1108,26 +1416,53 @@ def _leaves(tree):
 
 
 
+def _cms_timings(dev) -> dict[str, dict]:
+    """Phase 2's CMS timings: CUDA events, profiler device time, round trips."""
+    timings = phase_timings(dev)
+    for name, ms in phase_device_times(dev).items():
+        timings[name]["device_ms"] = ms
+    for name, rt in phase_round_trips(dev).items():
+        timings[name].update(rt)
+    return timings
+
+
+def main_sketch() -> int:
+    """``--sketch``: phase 1, the CMS timings and phase 4 without its CPU
+    comparison; their numbers as one JSON line."""
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = phase_device()
+    timings = _cms_timings(dev)
+    _, sketch = phase_full_size(card, time.perf_counter(), timings, timed=True)
+    log(f"total {time.perf_counter() - t_start:.3f} s on {card}")
+    print(json.dumps({"card": card, "src": str(_package_root()), "timings": timings,
+                      "phase4": sketch}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if "--sketch" in sys.argv[1:]:
+        return main_sketch()
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = phase_device()
     errors = phase_kernels_vs_plain(dev)
+    errors["cms_staged"] = phase_sketch_vs_plain(dev)
     flash_errors = phase_flash_vs_plain(dev)
-    timings = phase_timings(dev)
-    for name, ms in phase_device_times(dev).items():
-        timings[name]["device_ms"] = ms
+    timings = _cms_timings(dev)
     timings[FLASH] = phase_flash_timing(dev)
     wkv_errors = phase_wkv_vs_plain(dev)
     timings[WKV] = phase_wkv_timing(dev)
     t_phase3 = time.perf_counter()
     phase_main_path_kernel_vs_plain()
-    counts = phase_full_size(card, t_phase3, timings)
+    counts, sketch = phase_full_size(card, t_phase3, timings)
     counts[FLASH] = phase_serving(card, timings[FLASH]["device_ms"])[FLASH]
     counts[WKV] = phase_rwkv_serving(dev, card, timings[WKV]["device_ms"])[WKV]
+    for name in ("cms_update", "cms_estimate", "cms_update_estimate"):
+        errors[name] = max(errors[name], errors["cms_staged"])
     errors[FLASH] = max(flash_errors.values())
     errors[WKV] = max(wkv_errors.values())
     kernels = [{
@@ -1136,9 +1471,12 @@ def main() -> int:
         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"],
         "bound_ms": timings[name]["bound_ms"], "bound_by": timings[name]["bound_by"],
         "library_ms": timings[name]["library_ms"], "device_ms": timings[name]["device_ms"],
+        "round_trip_ms": timings[name].get("round_trip_ms"),
+        "library_round_trip_ms": timings[name].get("library_round_trip_ms"),
         "shape": timings[name]["shape"],
     } for name, (source, replaces) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_start:.3f} s on {card}")
+    log(json.dumps({"phase4": sketch}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

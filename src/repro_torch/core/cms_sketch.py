@@ -18,7 +18,14 @@ of a policy make byte-identical admission decisions.
 Aging follows the TinyLFU reset rule (paper §3): after every
 ``sample_factor * expected_entries`` increments all counters are halved;
 flushes are split at reset boundaries so the halving lands at the same
-access index as it would scalar-by-scalar.
+access index as it would scalar-by-scalar (:func:`plan_flush`).
+
+On a CUDA table with the kernels, every ``estimate_batch`` and ``flush`` is
+one C call through the sketch's pinned staging buffers
+(:class:`repro_torch.kernels.cms.cms.Staging`): the same launches, in the
+same order, as the tensor wrappers would make, with no tensor made per
+call. A CPU table, or ``use_kernel=False``, runs the plain versions through
+the tensor ops.
 
 Keys are int64 (trace ids reach 2**40) and are truncated to int32 before
 hashing, exactly as the reference does, so both packages hash the same bits.
@@ -30,10 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.cms import ops
-from repro_torch.kernels.cms.cms import FUSED_MAX_UPDATES
+from repro_torch.kernels.cms.cms import FUSED_MAX_UPDATES, Staging
 from repro_torch.kernels.cms.ref import ROWS
 
-__all__ = ["CMSSketch", "resolve_device"]
+__all__ = ["CMSSketch", "plan_flush", "resolve_device"]
 
 
 def resolve_device(device: "torch.device | str") -> torch.device:
@@ -47,6 +54,27 @@ def resolve_device(device: "torch.device | str") -> torch.device:
             f"device={device!r} but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU")
     return dev
+
+
+def plan_flush(pending: int, ops: int, sample_size: int,
+               flush_block: int) -> tuple[list[tuple[int, bool]], int]:
+    """How a flush of ``pending`` buffered increments is cut, from ``ops``
+    flushed increments in the current sample: the steps ``[(take, reset),
+    ...]``, each one kernel update of the next ``take`` keys followed, where
+    ``reset``, by the aging reset; and ``ops`` after the flush. A step ends
+    at ``flush_block`` keys or where the sample fills, so each halving lands
+    at the same access as it would scalar by scalar. One step with no reset
+    is what the fused update + estimate takes."""
+    steps = []
+    while pending > 0:
+        take = min(pending, sample_size - ops, flush_block)
+        pending -= take
+        ops += take
+        reset = ops >= sample_size
+        if reset:
+            ops //= 2
+        steps.append((take, reset))
+    return steps, ops
 
 
 class CMSSketch:
@@ -102,29 +130,42 @@ class CMSSketch:
         self.resets = 0
         self._ops = 0  # flushed increments within the current sample
         self._pending: list[int] = []
+        self._staging = (Staging(self.table)
+                         if self.table.is_cuda and use_kernel is not False else None)
 
     def _keys(self, keys) -> torch.Tensor:
         """int64 keys -> int32 (truncating, as the reference) on the device."""
         arr = np.asarray(keys, dtype=np.int64).astype(np.int32)
         return torch.from_numpy(arr).to(self.device)
 
+    def _take_pending(self) -> tuple[list[int], list[tuple[int, bool]]]:
+        """Empties the buffer; returns its keys and their flush plan, whose
+        count and resets are booked now."""
+        pending, self._pending = self._pending, []
+        steps, self._ops = plan_flush(len(pending), self._ops, self.sample_size, self.flush_block)
+        self.resets += sum(reset for _, reset in steps)
+        return pending, steps
+
+    def _flush_tensors(self, pending: list[int], steps) -> None:
+        pos = 0
+        for take, reset in steps:
+            ops.update(self.table, self._keys(pending[pos : pos + take]), cap=self.cap,
+                       use_kernel=self.use_kernel)
+            pos += take
+            if reset:
+                ops.reset(self.table)
+
     # -- batched data plane ------------------------------------------------
     def flush(self) -> None:
         """Apply buffered increments in batched kernel calls, splitting at
         aging-reset boundaries so reset timing matches scalar driving."""
-        pending = self._pending
-        pos = 0
-        while pos < len(pending):
-            take = min(len(pending) - pos, self.sample_size - self._ops, self.flush_block)
-            ops.update(self.table, self._keys(pending[pos : pos + take]), cap=self.cap,
-                       use_kernel=self.use_kernel)
-            pos += take
-            self._ops += take
-            if self._ops >= self.sample_size:
-                ops.reset(self.table)
-                self._ops //= 2
-                self.resets += 1
-        self._pending = []
+        if not self._pending:
+            return
+        pending, steps = self._take_pending()
+        if self._staging is not None:
+            self._staging.flush(self.table, self.cap, pending, steps)
+        else:
+            self._flush_tensors(pending, steps)
 
     # -- FrequencySketch-compatible control plane --------------------------
     def increment(self, key: int) -> None:
@@ -143,21 +184,24 @@ class CMSSketch:
         entry point. When increments are pending and fit one sub-batch with no
         aging reset due, the flush and the scoring run as ONE fused kernel
         launch (update + estimate-on-updated-table); otherwise the staged
-        ``flush()`` runs first and a plain estimate follows."""
+        flush runs first and a plain estimate follows."""
         if not isinstance(keys, (list, tuple, np.ndarray)):
             # e.g. the admission plane's lazy victim-prefix view: a device
             # sketch scores the whole prefix eagerly in its one kernel call
             keys = list(keys)
-        pending = self._pending
-        n = len(pending)
-        if 0 < n <= self.flush_block and self._ops + n < self.sample_size:
+        pending, steps = self._take_pending()
+        fused = len(steps) == 1 and not steps[0][1]
+        if self._staging is not None:
+            if fused:
+                return self._staging.update_estimate(self.table, self.cap, pending, keys)
+            return self._staging.estimate(self.table, self.cap, pending, keys, steps)
+        if fused:
             # one host->device copy carries both key sets
+            n = len(pending)
             both = self._keys(np.concatenate([np.asarray(pending, dtype=np.int64),
                                               np.asarray(keys, dtype=np.int64)]))
             _, vals = ops.update_estimate(self.table, both[:n], both[n:], cap=self.cap,
                                           use_kernel=self.use_kernel)
-            self._ops += n
-            self._pending = []
             return vals.cpu().numpy()
-        self.flush()
+        self._flush_tensors(pending, steps)
         return ops.estimate(self.table, self._keys(keys), use_kernel=self.use_kernel).cpu().numpy()

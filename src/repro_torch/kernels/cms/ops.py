@@ -45,5 +45,7 @@ def update_estimate(table: torch.Tensor, upd_keys: torch.Tensor, est_keys: torch
 
 def reset(table: torch.Tensor) -> torch.Tensor:
     """TinyLFU aging: halve every counter, in place (paper §3). The JAX
-    package leaves this shift to XLA outside Pallas; it stays a tensor op."""
+    package leaves this shift to XLA outside Pallas; here it is a tensor op
+    for the plain path, and a kernel inside the one C call of a staged
+    flush on the card (``cms_halve_kernel``)."""
     return table.bitwise_right_shift_(1)

@@ -151,7 +151,10 @@ def attention_decode(p, cfg, x: Tensor, pos: int, kcache: Tensor, vcache: Tensor
         slot = pos % T
         mask = (kj <= pos) | (pos >= T)  # ring full -> all slots live
     else:
-        slot = pos
+        # as the reference's dynamic_update_slice clamps its start index:
+        # a decode past the cache's end (a fully cached prompt whose stored
+        # KV was not re-padded, ROADMAP F2) writes into the last slot
+        slot = min(pos, T - 1)
         mask = kj <= pos
     kcache[:, slot] = k[:, 0].to(kcache.dtype)
     vcache[:, slot] = v[:, 0].to(vcache.dtype)

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core import REGISTRY, HitMaskRecorder, SimulationEngine
+from repro_torch.core.cms_sketch import CMSSketch
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.cms import cms
 from repro_torch.kernels.wkv import wkv6 as wkv
@@ -58,6 +59,146 @@ def test_kernels_match_plain(cuda_device, width):
         vb = cms.cms_update_estimate(b, upd, est, cap=cap, use_kernel=False)
         assert torch.equal(a, b) and torch.equal(va, vb)
     torch.cuda.synchronize()
+
+
+def _same_sketch(a, b):
+    assert np.array_equal(a.table.cpu().numpy(), b.table.cpu().numpy())
+    assert (a._ops, a.resets, a._pending) == (b._ops, b.resets, b._pending)
+
+
+def _drive(rng, sketches, pool, flush_block, steps=150):
+    """The same random interleaving of increments, batches above
+    ``flush_block``, estimates, lazy prefix views and explicit flushes (two
+    in a row among them) on every sketch; their estimates must agree."""
+    for _ in range(steps):
+        op = int(rng.integers(0, 6))
+        if op == 0:
+            key = int(rng.choice(pool))
+            for sk in sketches:
+                sk.increment(key)
+        elif op == 1:
+            batch = rng.choice(pool, int(rng.choice([2, 30, flush_block + 1, 2 * flush_block + 37])))
+            for sk in sketches:
+                sk.increment_batch(batch)
+        elif op == 2:
+            for sk in sketches:
+                sk.flush()
+                sk.flush()
+        else:
+            keys = rng.choice(pool, int(rng.choice([0, 1, 11, 34])))
+            view = op == 5
+            got = [sk.estimate_batch(iter(keys.tolist()) if view else keys) for sk in sketches]
+            for g in got[1:]:
+                assert g.dtype == np.int32 and np.array_equal(g, got[0])
+        for sk in sketches[1:]:
+            _same_sketch(sk, sketches[0])
+
+
+@pytest.mark.parametrize("seed,expected_entries,flush_block",
+                         [(0, 16, 512), (1, 40, 48), (2, 200, 512), (3, 16, 7)])
+def test_staged_sketch_equals_plain(cuda_device, seed, expected_entries, flush_block):
+    """The sketch's one-C-call path on the card against the plain versions
+    on the CPU and the tensor wrappers on the card, over random
+    interleavings with aging resets inside flushes."""
+    rng = np.random.default_rng(seed)
+    pool = np.concatenate([rng.integers(0, 50, 32), rng.integers(1 << 31, 1 << 40, 32),
+                           [(1 << 31) - 1, 1 << 31, -5]]).astype(np.int64)
+    staged = CMSSketch(expected_entries, flush_block=flush_block)
+    wrappers = CMSSketch(expected_entries, flush_block=flush_block)
+    wrappers._staging = None  # the tensor wrappers on the card
+    cpu = CMSSketch(expected_entries, flush_block=flush_block, device="cpu")
+    assert staged._staging is not None
+    _drive(rng, [cpu, staged, wrappers], pool, flush_block)
+    assert cpu.resets > 0
+
+
+def test_staging_edges(cuda_device):
+    """Buffer growth past flush_block + 34 keys, empty calls, and two
+    flushes with no estimate between them, against the CPU sketch."""
+    staged, cpu = CMSSketch(64), CMSSketch(64, device="cpu")
+    assert staged._staging.capacity == cms.STAGING_KEYS == 1024
+    rng = np.random.default_rng(7)
+    for sk in (staged, cpu):
+        assert sk.estimate_batch([]).shape == (0,)
+        sk.flush()  # nothing pending
+    big = rng.integers(0, 1 << 40, 3000)
+    keys = rng.integers(0, 1 << 40, 700)
+    for sk in (staged, cpu):
+        sk.increment_batch(big)
+    assert np.array_equal(staged.estimate_batch(keys), cpu.estimate_batch(keys))
+    assert staged._staging.capacity == 4096
+    _same_sketch(staged, cpu)
+    for sk in (staged, cpu):
+        sk.increment_batch(big[:600])
+        sk.flush()
+        sk.increment_batch(big[600:1900])
+        sk.flush()
+        sk.increment_batch(big[:3])
+        assert sk.estimate_batch([]).shape == (0,)  # flushes, scores nothing
+    _same_sketch(staged, cpu)
+    assert np.array_equal(staged.estimate_batch(keys[:34]), cpu.estimate_batch(keys[:34]))
+
+
+class _CountingLib:
+    """Counts the calls made through a ctypes library."""
+
+    def __init__(self, lib):
+        self.lib, self.calls = lib, 0
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+
+        def call(*args):
+            self.calls += 1
+            return fn(*args)
+        return call
+
+
+def test_one_c_call_per_sketch_call_and_launches_as_the_wrappers(cuda_device):
+    """Each estimate_batch and flush is one C call, and the launches per
+    kernel equal the tensor wrappers' for the same calls."""
+    rng = np.random.default_rng(11)
+    staged, wrappers = CMSSketch(40, flush_block=48), CMSSketch(40, flush_block=48)
+    wrappers._staging = None
+    lib = staged._staging._lib = _CountingLib(staged._staging._lib)
+    pool = rng.integers(0, 1 << 40, 200)
+    counts, made = [], []
+    for sk in (staged, wrappers):
+        calls = np.random.default_rng(12)
+        cms.reset_launch_counts()
+        sk_calls = 0  # calls with work: a flush of nothing makes none
+        for _ in range(300):
+            sk.increment_batch(pool[: int(calls.choice([0, 1, 3, 49, 120]))])
+            if calls.integers(0, 4) == 0:
+                sk_calls += bool(sk._pending)
+                sk.flush()
+            else:
+                sk_calls += 1
+                sk.estimate_batch(pool[: int(calls.choice([1, 11, 34]))])
+        torch.cuda.synchronize()
+        counts.append(cms.launch_counts())
+        made.append(sk_calls)
+    assert lib.calls == made[0]
+    assert counts[0] == counts[1] and all(v > 0 for v in counts[0].values()), counts
+    _same_sketch(staged, wrappers)
+
+
+def test_staged_calls_allocate_nothing(cuda_device):
+    """1,000 estimate_batch calls, fused and not, make no device allocation."""
+    sk = CMSSketch(858)
+    rng = np.random.default_rng(13)
+    keys = rng.integers(0, 1 << 40, (1000, 20))
+    sk.increment(1)
+    sk.estimate_batch(keys[0])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    for i in range(1000):
+        if i % 2:
+            sk.increment(int(keys[i, 0]))
+            sk.increment(int(keys[i, 1]))
+        sk.estimate_batch(keys[i])
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
 
 
 @pytest.mark.parametrize("spec", ["wtlfu-av-sampled_frequency?sketch_backend=cms",

@@ -509,19 +509,22 @@ class TestEngine:
         assert hit["cached_tokens"] == 16
         assert float((hit["prompt_logits"] - cold["prompt_logits"]).abs().max()) > 1e-3
 
-    def test_dense_fully_cached_prompt_diverges_from_reference(self, engine_parts):
-        """ROADMAP §3 (a) for attention kinds: a fully cached block-aligned
+    def test_dense_mirrors_reference_fully_cached_prompt_clamps_last_slot(self, engine_parts):
+        """ROADMAP §3 F2 for attention kinds: a fully cached block-aligned
         prompt's stored KV holds all its tokens but is looked up at one
         fewer, so it is not re-padded to max_seq, and decoding writes past
-        its end: the reference's write is clamped into the last slot, the
-        port's raises."""
+        its end. The reference's ``dynamic_update_slice`` clamps the write
+        into the last slot; the port clamps it the same way, so both
+        engines give the same tokens."""
         jm, jp, pm, pp = engine_parts["smollm-135m"]
         prompt = list(range(16))
         want = JaxEngine(jm, jp, JaxEngineConfig(**self.ECFG)).generate([prompt, prompt],
                                                                          max_new_tokens=4)
+        got = Engine(pm, pp, EngineConfig(**self.ECFG)).generate([prompt, prompt],
+                                                                 max_new_tokens=4)
         assert want[1]["cached_tokens"] == 15
-        with pytest.raises(IndexError):
-            Engine(pm, pp, EngineConfig(**self.ECFG)).generate([prompt, prompt], max_new_tokens=4)
+        assert [r["cached_tokens"] for r in got] == [r["cached_tokens"] for r in want]
+        assert [r["tokens"] for r in got] == [r["tokens"] for r in want]
 
     def test_cached_equals_uncached(self, engine_parts):
         _, _, pm, pp = engine_parts["smollm-135m"]

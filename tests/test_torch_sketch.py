@@ -1,4 +1,5 @@
-"""The port's ``CMSSketch`` on the CPU against the reference's, step by step.
+"""The port's ``CMSSketch`` on the CPU against the reference's, step by step,
+and its flush plan (``plan_flush``) against scalar driving.
 
 Random interleavings of ``increment`` / ``increment_batch`` /
 ``estimate`` / ``estimate_batch`` go to both sketches (the reference's
@@ -15,7 +16,8 @@ import torch
 from _torch_port import torch_one_thread  # noqa: F401  (fixture)
 
 from repro.core.cms_sketch import CMSSketch as JaxCMSSketch
-from repro_torch.core.cms_sketch import CMSSketch
+from repro_torch.core.cms_sketch import CMSSketch, plan_flush
+from repro_torch.kernels.cms import ops as port_ops
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
@@ -102,3 +104,90 @@ def test_device_rules():
         CMSSketch(64, device="cpu", flush_block=513)
     sk = CMSSketch(64, device="cpu")
     assert sk.table.device == torch.device("cpu") and sk.table.dtype == torch.int32
+
+
+def _scalar_resets(pending, ops, sample_size):
+    """Scalar driving: one increment at a time, the reset right after the
+    increment that fills the sample. Returns the 1-based indexes (within
+    the flush) of the increments that reset, and ``ops`` after."""
+    resets = []
+    for i in range(1, pending + 1):
+        ops += 1
+        if ops >= sample_size:
+            ops //= 2
+            resets.append(i)
+    return resets, ops
+
+
+def _check_plan(steps, pending, ops, sample_size, flush_block):
+    """``steps`` cover the pending keys in order, no step above
+    ``flush_block``, a step cut short only by a reset, and every reset at
+    the increment where scalar driving resets."""
+    want_resets, want_ops = _scalar_resets(pending, ops, sample_size)
+    done, resets = 0, []
+    for i, (take, reset) in enumerate(steps):
+        assert 0 < take <= flush_block
+        done += take
+        if reset:
+            resets.append(done)
+        elif i < len(steps) - 1:
+            assert take == flush_block  # only a reset or the block cuts a step
+    assert done == pending and resets == want_resets
+    return want_ops
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plan_flush_matches_scalar_driving(seed):
+    """Random interleavings of flush sizes, carrying the sample count from
+    flush to flush, against one increment at a time."""
+    rng = np.random.default_rng(seed)
+    sample_size = int(rng.choice([7, 160, 2000]))
+    flush_block = int(rng.choice([1, 3, 48, 512]))
+    ops = 0
+    for _ in range(200):
+        pending = int(rng.choice([0, 1, 2, flush_block - 1, flush_block, flush_block + 1,
+                                  rng.integers(0, 3 * sample_size)]))
+        pending = max(pending, 0)
+        steps, new_ops = plan_flush(pending, ops, sample_size, flush_block)
+        assert new_ops == _check_plan(steps, pending, ops, sample_size, flush_block)
+        ops = new_ops
+        assert 0 <= ops < sample_size
+
+
+@pytest.mark.parametrize("pending,ops,want", [
+    (0, 5, []),  # nothing pending: no step
+    (512, 0, [(512, False)]),  # exactly one block: the fused path
+    (513, 0, [(512, False), (1, False)]),  # one over the block
+    (900, 0, [(512, False), (388, False)]),  # two blocks, the second short
+    (995, 5, [(512, False), (483, True)]),  # the sample fills in the second block
+    (100, 900, [(100, True)]),  # fills the sample exactly: a reset, not fused
+    (99, 900, [(99, False)]),  # one short of the sample: fused
+    (1200, 900, [(100, True), (500, True), (500, True), (100, False)]),  # resets inside
+    (1, 999, [(1, True)]),
+])
+def test_plan_flush_edges(pending, ops, want):
+    """flush_block 512, sample 1,000: block edges and resets inside a flush."""
+    steps, new_ops = plan_flush(pending, ops, 1000, 512)
+    assert steps == want
+    assert new_ops == _check_plan(steps, pending, ops, 1000, 512)
+
+
+def test_host_path_follows_the_plan(monkeypatch):
+    """The CPU sketch's flush makes the plan's updates and resets, in its
+    order, and books its count and resets."""
+    calls = []
+    monkeypatch.setattr(port_ops, "update",
+                        lambda table, keys, **kw: calls.append(("update", keys.numel())))
+    monkeypatch.setattr(port_ops, "reset", lambda table: calls.append(("reset",)))
+    sk = CMSSketch(16, flush_block=48, device="cpu")
+    sk._ops = sk.sample_size - 30
+    sk.increment_batch(np.arange(2 * sk.sample_size + 7))
+    steps, ops = plan_flush(len(sk._pending), sk._ops, sk.sample_size, 48)
+    sk.flush()
+    want = []
+    for take, reset in steps:
+        want.append(("update", take))
+        if reset:
+            want.append(("reset",))
+    assert calls == want and sk._ops == ops and sk._pending == []
+    assert sk.resets == sum(r for _, r in steps) >= 2
